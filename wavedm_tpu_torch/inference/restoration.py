@@ -1,0 +1,201 @@
+"""Full-image diffusive restoration on the wavelet path.
+
+For a batch of (B, H, W, 3) degraded images in [0, 1]:
+
+  pixels -> [-1,1] -> Haar DWT (scale 2) -> 48 cond channels at H/4 x W/4
+  HFRM(pixels) -> [-1,1] -> DWT -> the 45 high-frequency channels
+  x_T: pure noise, or with ``sampling.t_start`` the HFRM LL band noised
+  tiled DDIM over 64x64 wavelet patches -> x0 at ``x0_pred_index``
+  [diffusion LL(3) | HFRM HF(45)] -> IWT -> [0,1]
+
+All of it stays on the device; the B images run as one (B*K)-patch UNet
+batch per step.  Tensors are NCHW inside; the public entry points take and
+return NHWC images as the JAX ``DiffusiveRestoration`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from wavedm_tpu_torch.config import Config
+from wavedm_tpu_torch.diffusion.sampling import make_overlapping_sampler
+from wavedm_tpu_torch.diffusion.schedules import (ddim_timesteps,
+                                                  get_beta_schedule)
+from wavedm_tpu_torch.inference.loader import resolve_device
+from wavedm_tpu_torch.ops.wavelet import wavelet_dec, wavelet_rec
+
+__all__ = ["data_transform", "inverse_data_transform", "DiffusiveRestoration"]
+
+
+def data_transform(x: torch.Tensor) -> torch.Tensor:
+    """[0,1] -> [-1,1]."""
+    return 2.0 * x - 1.0
+
+
+def inverse_data_transform(x: torch.Tensor) -> torch.Tensor:
+    """[-1,1] -> [0,1], clamped."""
+    return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
+
+
+class DiffusiveRestoration:
+    """Restoration runner for a fixed config (wavelet path).
+
+    Args:
+      cfg: validated Config.
+      unet: the diffusion ``DiffusionUNet`` (eval mode, on ``device``).
+      hfrm: the frozen stage-1 ``HFRM``.
+      device: where everything runs; the card when None (raises if there
+        is none).
+    """
+
+    def __init__(self, cfg: Config, unet: nn.Module, hfrm: nn.Module,
+                 device=None):
+        if not cfg.data.wavelet or cfg.data.wavelet_in_unet or cfg.data.lap:
+            raise NotImplementedError(
+                "only the wavelet restoration path is ported")
+        if cfg.sampling.whole_image or cfg.data.global_attn:
+            raise NotImplementedError(
+                "whole_image and global_attn sampling are not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.unet, self.hfrm = unet, hfrm
+        self.betas = torch.as_tensor(get_beta_schedule(
+            cfg.diffusion.beta_schedule,
+            beta_start=cfg.diffusion.beta_start,
+            beta_end=cfg.diffusion.beta_end,
+            num_diffusion_timesteps=cfg.diffusion.num_diffusion_timesteps,
+        ), dtype=torch.float32)
+        if cfg.sampling.t_start > 0:
+            skip = max(1, cfg.sampling.t_start
+                       // cfg.sampling.sampling_timesteps)
+            self.seq = np.arange(0, cfg.sampling.t_start, skip,
+                                 dtype=np.int32)
+        else:
+            self.seq = ddim_timesteps(cfg.diffusion.num_diffusion_timesteps,
+                                      cfg.sampling.sampling_timesteps)
+        self._restore_fns: Dict[Tuple[int, int], Callable] = {}
+
+    def _init_chain_state(self, base_ll: Optional[torch.Tensor],
+                          noise: torch.Tensor) -> torch.Tensor:
+        """x at the chain's start: ``noise``, or ``base_ll`` noised to the
+        chain's starting alpha-bar (float32 cumprod of float32 betas)."""
+        abar = torch.cumprod(1.0 - self.betas, dim=0)
+        if self.cfg.sampling.t_start > 0:
+            a = abar[int(self.seq[-1])]
+        elif self.cfg.data.begin_from_noise or base_ll is None:
+            return noise
+        else:
+            a = abar[-1]
+        sqrt_1ma = torch.sqrt(1.0 - a).item()
+        if base_ll is None:
+            return noise * sqrt_1ma
+        return base_ll * torch.sqrt(a).item() + noise * sqrt_1ma
+
+    def _init_base_ll(self, cond: torch.Tensor,
+                      hfrm: torch.Tensor) -> Optional[torch.Tensor]:
+        """The LL-band source noised by ``_init_chain_state``; None = pure
+        noise."""
+        s = self.cfg.sampling
+        pc = self.cfg.model.pred_channels
+        if s.t_start > 0:
+            if s.init_ll == "hfrm":
+                return hfrm[:, :pc]
+            if s.init_ll == "cond":
+                return cond[:, :pc]
+            return None
+        return None if self.cfg.data.begin_from_noise else cond[:, :pc]
+
+    def _select_output(self, x_final: torch.Tensor,
+                       x0_preds: torch.Tensor) -> torch.Tensor:
+        """The x0 estimate at ``x0_pred_index``: the sampler is built with
+        ``x0_keep``, so x0_preds holds exactly that one estimate."""
+        return x0_preds[0]
+
+    def _build_wavelet_restore(self, h: int, w: int) -> Callable:
+        """Restore pipeline for pixel geometry (h, w), working in the
+        wavelet domain (h/4, w/4)."""
+        cfg, m = self.cfg, self.cfg.model
+        hw, ww = h // 4, w // 4
+        sampler = make_overlapping_sampler(
+            self.unet,
+            image_shape=(hw, ww),
+            patch_size=cfg.data.image_size,
+            grid_r=cfg.sampling.grid_r,
+            seq=self.seq,
+            betas=self.betas,
+            pred_channels=m.pred_channels,
+            eta=cfg.sampling.eta,
+            use_other=m.use_other_channels,
+            patch_micro_batch=cfg.sampling.patch_micro_batch,
+            x0_keep=cfg.sampling.x0_pred_index,
+            pred_type=cfg.training.pred_type,
+            solver=cfg.sampling.solver,
+        )
+
+        def restore(cond_pixel: torch.Tensor, noise: torch.Tensor):
+            # cond_pixel: (B, 3, h, w) in [0,1]; noise: (B, pred, h/4, w/4)
+            cond_w = wavelet_dec(data_transform(cond_pixel))
+            restored = self.hfrm(cond_pixel)
+            hfrm_w = wavelet_dec(data_transform(restored))
+            x_init = self._init_chain_state(
+                self._init_base_ll(cond_w, hfrm_w), noise)
+            x_other = (hfrm_w[:, m.other_channels_begin:]
+                       if m.use_other_channels else None)
+            x_final, x0_preds = sampler(x_init, cond_w, x_other)
+            sel = self._select_output(x_final, x0_preds)
+            full = torch.cat([sel[:, :m.pred_channels],
+                              hfrm_w[:, m.pred_channels:]], dim=1)
+            return inverse_data_transform(wavelet_rec(full)), restored
+
+        return restore
+
+    def _get_restore_fn(self, h: int, w: int) -> Callable:
+        if (h, w) not in self._restore_fns:
+            self._restore_fns[(h, w)] = self._build_wavelet_restore(h, w)
+        return self._restore_fns[(h, w)]
+
+    @torch.no_grad()
+    def restore_image_device(
+        self, cond_pixel, noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B|None, H, W, 3) [0,1] image(s) -> (restored, hfrm_out), both
+        (B, H, W, 3) float32 on the device, with no host transfer.
+
+        ``noise``: x_T draw as (B, pred_channels, H/4, W/4); when None it is
+        drawn on the device from ``generator`` (default: seeded with
+        ``training.seed``)."""
+        x = torch.as_tensor(cond_pixel, dtype=torch.float32,
+                            device=self.device)
+        if x.dim() == 3:
+            x = x[None]
+        b, h, w, _ = x.shape
+        if h % 4 or w % 4:
+            raise ValueError(f"image dims {(h, w)} must be divisible by 4")
+        shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(
+                    self.cfg.training.seed)
+            noise = torch.randn(shape, generator=generator,
+                                device=self.device, dtype=torch.float32)
+        elif tuple(noise.shape) != shape:
+            raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
+        noise = noise.to(device=self.device, dtype=torch.float32)
+        pixels = x.permute(0, 3, 1, 2).contiguous()
+        out, restored = self._get_restore_fn(h, w)(pixels, noise)
+        return out.permute(0, 2, 3, 1), restored.permute(0, 2, 3, 1)
+
+    def restore_image(self, cond_pixel, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[np.ndarray, torch.Tensor]:
+        """As :meth:`restore_image_device`, with the restored image fetched
+        to the host as a (B, H, W, 3) numpy array; the HFRM output stays on
+        the device."""
+        out, restored = self.restore_image_device(cond_pixel, noise,
+                                                  generator)
+        return out.cpu().numpy(), restored

@@ -1,0 +1,137 @@
+"""HFRM, the stage-1 high-frequency restoration module, on NCHW tensors.
+
+NAFNet-style encoder-decoder with the reference's key names: ``conv_in``,
+per-level ``encoders`` stacks with 2x2 stride-2 ``downs``, ``mid_blks``,
+``ups`` (1x1 conv + PixelShuffle) with additive encoder skips, ``decoders``,
+``conv_out`` and a global ``x + input`` residual.  The input is padded to a
+multiple of 2**levels and the output cropped back.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from wavedm_tpu_torch.config import Config
+from wavedm_tpu_torch.models.layers import cast_compute
+
+__all__ = ["LayerNorm2d", "ChannelAttn", "HFRMBlock", "HFRM"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LayerNorm2d(nn.Module):
+    """Per-pixel LayerNorm over channels with biased variance, float32
+    statistics, output in the input dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mu = x32.mean(dim=1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + self.eps)
+        y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def simple_gate(x: torch.Tensor) -> torch.Tensor:
+    a, b = x.chunk(2, dim=1)
+    return a * b
+
+
+class ChannelAttn(nn.Module):
+    """Global average pool -> 1x1 conv -> channel scale."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.chan_conv = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.chan_conv(x.mean(dim=(2, 3), keepdim=True))
+
+
+class HFRMBlock(nn.Module):
+    """One NAFNet-style residual block with zero-initialised beta/gamma."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm2d(dim)
+        self.conv1 = nn.Conv2d(dim, dim * 2, 1)
+        self.conv2 = nn.Conv2d(dim * 2, dim * 2, 3, padding=1, groups=dim * 2)
+        self.channel_attn = ChannelAttn(dim)
+        self.conv3 = nn.Conv2d(dim, dim, 1)
+        self.norm2 = LayerNorm2d(dim)
+        self.conv4 = nn.Conv2d(dim, dim * 2, 1)
+        self.conv5 = nn.Conv2d(dim, dim, 1)
+        self.beta = nn.Parameter(torch.zeros(1, dim, 1, 1))
+        self.gamma = nn.Parameter(torch.zeros(1, dim, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(self.conv1(self.norm1(x)))
+        h = self.conv3(self.channel_attn(simple_gate(h)))
+        y = x + (h * self.beta).to(x.dtype)
+        h = self.conv5(simple_gate(self.conv4(self.norm2(y))))
+        return y + (h * self.gamma).to(y.dtype)
+
+
+class HFRM(nn.Module):
+    """High-frequency restoration module: (B, 3, H, W) [0,1] -> same."""
+
+    def __init__(self, in_channel: int = 3, dim: int = 32,
+                 mid_blk_num: int = 6,
+                 enc_blk_nums: Tuple[int, ...] = (2, 2, 2, 4),
+                 dec_blk_nums: Tuple[int, ...] = (2, 2, 2, 2),
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.num_levels = len(enc_blk_nums)
+        self.conv_in = nn.Conv2d(in_channel, dim, 3, padding=1)
+        self.encoders, self.downs = nn.ModuleList(), nn.ModuleList()
+        chan = dim
+        for num in enc_blk_nums:
+            self.encoders.append(
+                nn.Sequential(*[HFRMBlock(chan) for _ in range(num)]))
+            self.downs.append(nn.Conv2d(chan, chan * 2, 2, stride=2))
+            chan *= 2
+        self.mid_blks = nn.Sequential(
+            *[HFRMBlock(chan) for _ in range(mid_blk_num)])
+        self.ups, self.decoders = nn.ModuleList(), nn.ModuleList()
+        for num in dec_blk_nums:
+            self.ups.append(nn.Sequential(
+                nn.Conv2d(chan, chan * 2, 1, bias=False), nn.PixelShuffle(2)))
+            chan //= 2
+            self.decoders.append(
+                nn.Sequential(*[HFRMBlock(chan) for _ in range(num)]))
+        self.conv_out = nn.Conv2d(dim, in_channel, 3, padding=1)
+        cast_compute(self, compute_dtype)
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "HFRM":
+        return cls(dim=cfg.hfrm.dim, mid_blk_num=cfg.hfrm.middle_blk_num,
+                   enc_blk_nums=cfg.hfrm.enc_blk_nums,
+                   dec_blk_nums=cfg.hfrm.dec_blk_nums,
+                   compute_dtype=_DTYPES[cfg.parallel.compute_dtype])
+
+    def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        h_in, w_in = inp.shape[2], inp.shape[3]
+        mult = 2 ** self.num_levels
+        x = F.pad(inp, (0, (-w_in) % mult, 0, (-h_in) % mult))
+        x = self.conv_in(x.to(self.compute_dtype))
+        skips = []
+        for enc, down in zip(self.encoders, self.downs):
+            x = enc(x)
+            skips.append(x)
+            x = down(x)
+        x = self.mid_blks(x)
+        for up, dec, skip in zip(self.ups, self.decoders, reversed(skips)):
+            x = dec(up(x) + skip)
+        x = self.conv_out(x)
+        return x[:, :, :h_in, :w_in].float() + inp

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels: one ``nvcc`` call, one ``.so``.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into
+``_build/libwavedm_tpu_torch_kernels.so``, a shared library with a plain C
+interface that :func:`library` loads with ``ctypes``.  Nothing here includes
+PyTorch's headers, which keeps the build at seconds.
+
+The build runs at first use and again only when the sources change: a hash
+of the sources and flags is compiled into the library as a marker string,
+so the library file is the only thing the build leaves in the tree.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libwavedm_tpu_torch_kernels.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+BUILD_TIMEOUT_S = 300
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points of csrc/*.cu: name -> argtypes (all return cudaError_t)
+ENTRIES = {
+    "wavelet_dec_f32": (_P, _P, _I, _I, _I, _I, _P),
+    "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _P),
+    "group_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "group_norm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+last_build_seconds = None   # wall time of this process's nvcc call, if any
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):  # + .cuh
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:32]
+
+
+def _marker(digest: str) -> bytes:
+    # csrc/common.cu compiles "wavedm-src-hash=" #WAVEDM_SRC_HASH into the .so
+    return f"wavedm-src-hash=h{digest}".encode()
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += ["/usr/local/cuda/bin/nvcc"]
+    for cand in candidates:
+        if os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels of "
+            "wavedm_tpu_torch cannot be built, and there is no fallback")
+    return found
+
+
+def _is_current(digest: str) -> bool:
+    if not os.path.isfile(LIB_PATH):
+        return False
+    with open(LIB_PATH, "rb") as f:
+        return _marker(digest) in f.read()
+
+
+def build(force: bool = False) -> str:
+    """Compile ``csrc/*.cu`` unless the library is current; returns its path."""
+    global last_build_seconds
+    digest = source_hash()
+    if not force and _is_current(digest):
+        return LIB_PATH
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, f"-DWAVEDM_SRC_HASH=h{digest}", "-o", tmp,
+           *_sources()]
+    t0 = time.perf_counter()
+    try:
+        subprocess.run(cmd, check=True, timeout=BUILD_TIMEOUT_S,
+                       capture_output=True, text=True)
+        os.replace(tmp, LIB_PATH)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    last_build_seconds = time.perf_counter() - t0
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed); raises when it
+    cannot be built."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.wavedm_error_string.argtypes = (ctypes.c_int,)
+            lib.wavedm_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = lib.wavedm_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

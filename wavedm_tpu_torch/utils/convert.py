@@ -1,0 +1,140 @@
+"""Carry weights across: JAX parameter trees -> the port's ``state_dict``.
+
+The JAX package keeps its parameters as nested dicts of arrays (NHWC convs
+with HWIO kernels, Dense kernels as (in, out)).  These functions are the
+exact inverse of ``wavedm_tpu/utils/torch_compat.py``'s converters: conv
+kernels go HWIO -> OIHW, Dense kernels (in, out) -> (out, in), and the keys
+become the reference's, which the port's modules use.  Leaves may be numpy
+arrays or anything ``np.asarray`` accepts.
+
+:func:`load_torch_checkpoint` loads reference ``.pth``/``.pth.tar`` files.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["unet_state_dict_from_flax", "hfrm_state_dict_from_flax",
+           "load_torch_checkpoint"]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(sd: Dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
+                                          (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _dense(sd: Dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (1, 0)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _norm(sd: Dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _t(p["norm"]["scale"])
+    sd[f"{key}.bias"] = _t(p["norm"]["bias"])
+
+
+def _resnet_block(sd: Dict, key: str, p: Mapping) -> None:
+    _norm(sd, f"{key}.norm1", p["norm1"])
+    _conv(sd, f"{key}.conv1", p["conv1"])
+    _dense(sd, f"{key}.temb_proj", p["temb_proj"])
+    _norm(sd, f"{key}.norm2", p["norm2"])
+    _conv(sd, f"{key}.conv2", p["conv2"])
+    for name in ("nin_shortcut", "conv_shortcut"):
+        if name in p:
+            _conv(sd, f"{key}.{name}", p[name])
+
+
+def _attn_block(sd: Dict, key: str, p: Mapping) -> None:
+    _norm(sd, f"{key}.norm", p["norm"])
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(sd, f"{key}.{name}", p[name])
+
+
+def unet_state_dict_from_flax(params: Mapping, num_levels: int,
+                              num_res_blocks: int) -> Dict[str, torch.Tensor]:
+    """JAX ``DiffusionUNet`` params -> the port's (and the reference's)
+    ``DiffusionUNet`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "temb.dense.0", params["temb"]["dense0"])
+    _dense(sd, "temb.dense.1", params["temb"]["dense1"])
+    _conv(sd, "conv_in", params["conv_in"])
+    for i in range(num_levels):
+        for j in range(num_res_blocks):
+            _resnet_block(sd, f"down.{i}.block.{j}",
+                          params[f"down_{i}_block_{j}"])
+            if f"down_{i}_attn_{j}" in params:
+                _attn_block(sd, f"down.{i}.attn.{j}",
+                            params[f"down_{i}_attn_{j}"])
+        if f"down_{i}_downsample" in params:
+            _conv(sd, f"down.{i}.downsample.conv",
+                  params[f"down_{i}_downsample"]["conv"])
+    _resnet_block(sd, "mid.block_1", params["mid_block_1"])
+    _attn_block(sd, "mid.attn_1", params["mid_attn_1"])
+    _resnet_block(sd, "mid.block_2", params["mid_block_2"])
+    for i in range(num_levels):
+        for j in range(num_res_blocks + 1):
+            _resnet_block(sd, f"up.{i}.block.{j}", params[f"up_{i}_block_{j}"])
+            if f"up_{i}_attn_{j}" in params:
+                _attn_block(sd, f"up.{i}.attn.{j}", params[f"up_{i}_attn_{j}"])
+        if f"up_{i}_upsample" in params:
+            _conv(sd, f"up.{i}.upsample.conv",
+                  params[f"up_{i}_upsample"]["conv"])
+    _norm(sd, "norm_out", params["norm_out"])
+    _conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def _hfrm_block(sd: Dict, key: str, p: Mapping) -> None:
+    for name in ("norm1", "norm2"):
+        sd[f"{key}.{name}.weight"] = _t(p[name]["weight"])
+        sd[f"{key}.{name}.bias"] = _t(p[name]["bias"])
+    for name in ("conv1", "conv2", "conv3", "conv4", "conv5"):
+        _conv(sd, f"{key}.{name}", p[name])
+    _conv(sd, f"{key}.channel_attn.chan_conv", p["channel_attn"]["chan_conv"])
+    sd[f"{key}.beta"] = _t(p["beta"]).reshape(1, -1, 1, 1)
+    sd[f"{key}.gamma"] = _t(p["gamma"]).reshape(1, -1, 1, 1)
+
+
+def hfrm_state_dict_from_flax(params: Mapping, enc_blk_nums, mid_blk_num: int,
+                              dec_blk_nums) -> Dict[str, torch.Tensor]:
+    """JAX ``HFRM`` params -> the port's (and the reference's) HFRM
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    for li, num in enumerate(enc_blk_nums):
+        for bi in range(num):
+            _hfrm_block(sd, f"encoders.{li}.{bi}", params[f"enc_{li}_{bi}"])
+        _conv(sd, f"downs.{li}", params[f"down_{li}"])
+    for bi in range(mid_blk_num):
+        _hfrm_block(sd, f"mid_blks.{bi}", params[f"mid_{bi}"])
+    for li, num in enumerate(dec_blk_nums):
+        _conv(sd, f"ups.{li}.0", params[f"up_{li}"])
+        for bi in range(num):
+            _hfrm_block(sd, f"decoders.{li}.{bi}", params[f"dec_{li}_{bi}"])
+    _conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def load_torch_checkpoint(path: str, ema: bool = False) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth``/``.pth.tar`` file -> its state_dict on the CPU.
+
+    ``ema=True`` returns the EMA shadow (``obj['ema_helper']``, same keys
+    as ``state_dict``: the reference registers its EMAHelper on the
+    unwrapped module)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if ema:
+        if not (isinstance(obj, dict) and "ema_helper" in obj):
+            raise KeyError(f"checkpoint {path} has no 'ema_helper' entry")
+        return dict(obj["ema_helper"])
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return dict(obj)
