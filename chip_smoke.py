@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's restoration path on one CUDA card.
+"""Drive the PyTorch port's restoration and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,12 @@ Phases, each printing one JSON line with its elapsed seconds:
 
   card              the card's name and power limit; TF32 off for float32
   build             nvcc builds wavedm_tpu_torch/csrc/*.cu into one library
-  kernels           every CUDA kernel of the path against its plain PyTorch
-                    version at the main path's shapes, timed beside the plain
-                    version, one PyTorch library call and its memory bound
+                    (one process per source); ptxas registers and spills
+  kernels           every CUDA kernel of the paths against its plain PyTorch
+                    version at the main paths' shapes, timed beside the plain
+                    version, one PyTorch library call and its bound; the
+                    fused GN->swish->conv3x3 kernel's gradients against
+                    autograd through its composition
   small_parity      a small restoration on the card (kernels) against the
                     same restoration on the CPU (plain versions)
   restore           the flagship UNet (156,492,675 params) and HFRM
@@ -19,6 +22,18 @@ Phases, each printing one JSON line with its elapsed seconds:
                     HFRM LL, bfloat16); launch counts are checked per run
   fused_vs_unfused  the production profile again with
                     ``fused_groupnorm: false``, on the same inputs and noise
+  restore_fused_resblock
+                    the production restore with ``fused_resblock: true``
+                    (the fused kernel at all 44 ResnetBlock pairs), same
+                    weights, inputs and noise
+  train_parity      one train step of a small UNet on the card against the
+                    same step on the CPU
+  train             DiffusionTrainer.fit at flagship width with
+                    ``fused_resblock: true`` under the reference profile
+                    (float32, ground-truth conditioning, 8 crops) and the
+                    production profile (bfloat16, a frozen random HFRM, 16
+                    crops); loss, gradient, EMA, launch counts and a
+                    save/resume round trip are checked
 
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -26,13 +41,19 @@ It needs one CUDA card and the repository around it.
 """
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 
 MEM_BW = 3.35e12           # H100 SXM device memory, bytes/s
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
+TRAIN_STEPS = 5
+ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
 
@@ -69,6 +90,35 @@ def time_ms(fn, iters=20, warmup=3):
 def bound_ms(*tensors):
     """Least time to read the inputs once and write the outputs once."""
     return sum(t.numel() * t.element_size() for t in tensors) / MEM_BW * 1e3
+
+
+def ptxas_report(text):
+    """{kernel: {registers, spill_stores, spill_loads}} from ``ptxas -v``,
+    names demangled by ``c++filt`` where the machine has it."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    if out and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(out),
+                             capture_output=True, text=True, timeout=60)
+        names = res.stdout.splitlines()
+        if res.returncode == 0 and len(names) == len(out):
+            out = {re.sub(r"^void |\(.*$", "", new.replace(
+                "(anonymous namespace)::", "")): v
+                for new, v in zip(names, out.values())}
+    return out
 
 
 def gn_sites(cfg, n_patches):
@@ -198,6 +248,142 @@ def check_kernels(cfg, n_patches):
     return rows
 
 
+def fused_sites(cfg, n_patches):
+    """(Cin, H, W, Cout) -> count of GN -> swish -> conv3x3 pairs (both
+    convs of every ResnetBlock) over one UNet forward, from a forward on
+    the meta device."""
+    import torch
+    from collections import Counter
+
+    from wavedm_tpu_torch.models.layers import ResnetBlock
+    from wavedm_tpu_torch.models.unet import DiffusionUNet
+
+    with torch.device("meta"):
+        unet = DiffusionUNet.from_config(cfg, fused_gn=False,
+                                         fused_block=False)
+        sites = Counter()
+        for m in unet.modules():
+            if isinstance(m, ResnetBlock):
+                for conv in (m.conv1, m.conv2):
+                    conv.register_forward_hook(
+                        lambda mod, inp, out: sites.update(
+                            [tuple(inp[0].shape[1:]) + (out.shape[1],)]))
+        unet(torch.empty(n_patches, cfg.model.unet_in_channels,
+                         cfg.data.image_size, cfg.data.image_size),
+             torch.empty(n_patches))
+    return sites
+
+
+def _fused_inputs(gen, n, cin, h, w, cout, dtype):
+    """x, GN scale/shift, conv weight and bias at one site, the weight in
+    the compute dtype as serving stores it."""
+    import torch
+
+    dev = gen.device
+    x = (torch.randn(n, cin, h, w, device=dev, generator=gen) * 2
+         + 0.5).to(dtype)
+    sg = torch.randn(cin, device=dev, generator=gen) * 0.1 + 1
+    bg = torch.randn(cin, device=dev, generator=gen) * 0.1
+    wk = (torch.randn(cout, cin, 3, 3, device=dev, generator=gen)
+          * (9 * cin) ** -0.5).to(dtype)
+    b = torch.randn(cout, device=dev, generator=gen) * 0.1
+    return x, sg, bg, wk, b
+
+
+def check_fused_kernels(cfg):
+    """The fused GN -> swish -> conv3x3 kernel at every flagship site shape
+    against its plain version (N = 2), its gradients at two shapes, and
+    its time summed over one UNet forward at N = 90 (serving) and N = 16
+    (production training) beside the plain version, the library call and
+    the operations bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sites = fused_sites(cfg, 2)
+    assert sum(sites.values()) == 44 and len(sites) == 17, sites
+    rows = {}
+    # f32: 1e-4 of the output scale (summation order only, TF32 off).
+    # bf16: both sides round the same y once; the outputs round float32
+    # sums taken in another order, so may part by one bf16 ulp (2**-7 of
+    # the scale at most).
+    for dtype, tag, tol in ((torch.float32, "f32", 1e-4),
+                            (torch.bfloat16, "bf16", 2.0 ** -7)):
+        row = dict(source="wavedm_tpu_torch/csrc/fused_resblock.cu",
+                   replaces="wavedm_tpu/ops/fused_resblock.py:67",
+                   max_abs_err=0.0, max_rel_err=0.0, tol_rel=tol,
+                   bound_by="operations")
+        for cin, h, w, cout in sorted(sites):
+            args = _fused_inputs(gen, 2, cin, h, w, cout, dtype)
+            out = fr.fused_gn_swish_conv(*args, dtype)
+            ref = fr.fused_gn_swish_conv_plain(*args, dtype)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            rel = err / float(ref.float().abs().max())
+            assert rel <= tol, (tag, cin, h, cout, err, rel)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["max_rel_err"] = max(row["max_rel_err"], rel)
+        for n, key in ((90, ""), (16, "_n16")):
+            tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bytes_ms", "ops_ms"), 0.0)
+            iters = 3 if (tag, n) == ("f32", 90) else 10
+            for (cin, h, w, cout), count in sorted(sites.items()):
+                x, sg, bg, wk, b = _fused_inputs(gen, n, cin, h, w, cout,
+                                                 dtype)
+                bd = b.to(dtype)
+
+                def lib():
+                    y = F.silu(F.group_norm(x.float(), 32, sg, bg, 1e-6))
+                    return F.conv2d(y.to(dtype), wk, bd, padding=1)
+
+                k_ms = time_ms(lambda: fr.fused_gn_swish_conv(
+                    x, sg, bg, wk, b, dtype), iters, 1)
+                p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
+                    x, sg, bg, wk, b, dtype), iters, 1)
+                l_ms = time_ms(lib, iters, 1)
+                out_bytes = n * cout * h * w * x.element_size()
+                b_ms = (bound_ms(x, sg, bg, wk, b) + out_bytes / MEM_BW * 1e3)
+                o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
+                emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
+                     shape=[n, cin, h, w, cout], count_per_forward=count,
+                     ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                     bytes_ms=b_ms, ops_ms=o_ms,
+                     tflops=2.0 * n * h * w * 9 * cin * cout / k_ms / 1e9)
+                for name, val in (("ms", k_ms), ("plain_ms", p_ms),
+                                  ("library_ms", l_ms), ("bytes_ms", b_ms),
+                                  ("ops_ms", o_ms)):
+                    tot[name] += count * val          # per UNet forward
+            tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+            assert tot["ops_ms"] >= tot["bytes_ms"]
+            for name, val in tot.items():
+                row[name + key] = val
+        rows[f"fused_gn_swish_conv_{tag}"] = row
+        emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
+             per="UNet forward at N = 90 (and _n16: N = 16)",
+             **{k: v for k, v in row.items() if k not in ("source",
+                                                          "replaces")})
+
+    # gradients: the autograd Function against autograd through the plain
+    # composition it recomputes, float32, 1e-4 of each gradient's scale
+    for cin, h, cout in ((256, 16, 512), (128, 64, 128)):
+        args = [t.requires_grad_() for t in
+                _fused_inputs(gen, 2, cin, h, h, cout, torch.float32)]
+        ref_args = [t.detach().clone().requires_grad_() for t in args]
+        g = torch.randn(2, cout, h, h, device=dev, generator=gen)
+        (fr.fused_gn_swish_conv(*args, torch.float32) * g).sum().backward()
+        (fr.fused_gn_swish_conv_reference(*ref_args, torch.float32)
+         * g).sum().backward()
+        errs = [float((a.grad - r.grad).abs().max() / r.grad.abs().max())
+                for a, r in zip(args, ref_args)]
+        assert max(errs) <= 1e-4, errs
+        emit("kernels", kernel="fused_gn_swish_conv_f32 backward",
+             shape=[2, cin, h, h, cout], max_rel_err=max(errs), tol_rel=1e-4)
+    return rows
+
+
 def synthetic_images(seed):
     """Rain-degraded-looking (B, H, W, 3) images in [0, 1]: a smooth colour
     field with bright, blurred drops and sensor noise, from numpy."""
@@ -224,18 +410,19 @@ def synthetic_images(seed):
 
 
 def reset_counts():
-    from wavedm_tpu_torch.ops import groupnorm_cuda, wavelet_cuda
+    from wavedm_tpu_torch.ops import fused_resblock, groupnorm_cuda, wavelet_cuda
 
-    for counts in (groupnorm_cuda.launches, wavelet_cuda.launches):
+    for counts in (groupnorm_cuda.launches, wavelet_cuda.launches,
+                   fused_resblock.launches):
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from wavedm_tpu_torch.ops import groupnorm_cuda, wavelet_cuda
+    from wavedm_tpu_torch.ops import fused_resblock, groupnorm_cuda, wavelet_cuda
 
     return {**{f"group_norm_{k}": v for k, v in groupnorm_cuda.launches.items()},
-            **wavelet_cuda.launches}
+            **wavelet_cuda.launches, **fused_resblock.launches}
 
 
 def restore_timed(rest, images):
@@ -292,6 +479,152 @@ def small_parity():
     emit("small_parity", shape=list(out.shape), max_abs_err=err, tol=1e-4)
 
 
+def small_train_cfg():
+    from wavedm_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "data": {"image_size": 8, "patch_size": 32},
+        "model": {"ch": 64, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [4]},
+        "diffusion": {"num_diffusion_timesteps": 50},
+        "optim": {"optimizer": "SGD", "lr": 1e-5},
+        "parallel": {"fused_resblock": True}})
+
+
+def train_parity():
+    """One train step of a small fused-resblock UNet on the card (kernels)
+    against the same step on the CPU (plain versions): same weights, batch,
+    t and noise, float32.  SGD, so each parameter moves by lr times its
+    gradient and the comparison sees the gradients themselves (Adam would
+    turn float noise in a near-zero gradient into a +-lr step)."""
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.inference.loader import build_unet
+    from wavedm_tpu_torch.training.state import create_train_state
+    from wavedm_tpu_torch.training.train_step import make_train_step
+
+    cfg = small_train_cfg()
+    batch = np.random.default_rng(SEED).random((4, 32, 32, 6),
+                                               dtype=np.float32)
+    t = torch.tensor([3, 46, 20, 29])
+    e = torch.randn(4, 3, 8, 8, generator=torch.Generator().manual_seed(1))
+    out, weights = [], None
+    for dev in ("cpu", "cuda"):
+        # the CPU model's random weights, carried to the card
+        model = build_unet(cfg, weights, dev, train=True)
+        weights = weights or {k: v.clone()
+                              for k, v in model.state_dict().items()}
+        state = create_train_state(model, cfg.optim, 0)
+        m = make_train_step(cfg, model)(state, batch, t=t, e=e)
+        out.append((float(m.loss), float(m.grad_norm),
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    (l_cpu, g_cpu, sd_cpu), (l_gpu, g_gpu, sd_gpu) = out
+    param_err = max(float((sd_gpu[k] - sd_cpu[k]).abs().max()
+                          / sd_cpu[k].abs().max()) for k in sd_cpu)
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = abs(g_gpu - g_cpu) / abs(g_cpu)
+    assert max(param_err, loss_err, grad_err) <= 1e-4, (param_err, loss_err,
+                                                        grad_err)
+    emit("train_parity", optimizer="SGD", loss_rel_err=loss_err,
+         grad_norm_rel_err=grad_err, param_rel_err=param_err, tol_rel=1e-4)
+
+
+def train_profile(name, cfg, n_crops, hfrm_sd):
+    """DiffusionTrainer.fit at flagship width on synthetic crops, then one
+    more step by hand for the EMA check and a save/resume round trip.
+    Returns the launch counts of the counted run."""
+    import itertools
+
+    import torch
+
+    from wavedm_tpu_torch.cli.train_diffusion import smoke_batches
+    from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+
+    quiet = dict(device="cuda", log_fn=lambda msg: None)
+    trainer = DiffusionTrainer(cfg, hfrm_state_dict=hfrm_sd, **quiet)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    assert n_params == 156_492_675, n_params
+    batches = list(itertools.islice(smoke_batches(cfg, n_crops)(0),
+                                    TRAIN_STEPS + 1))
+    p0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+
+    # the counted run: counts start at 0 just before it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer.fit(lambda epoch: iter(batches[:1]), max_steps=1)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    trainer.fit(lambda epoch: iter(batches[1:TRAIN_STEPS]),
+                max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - 1)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert trainer.state.step == TRAIN_STEPS
+    tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
+    dwt = 2 if cfg.model.use_gt_in_train else 3
+    want = {f"fused_gn_swish_conv_{tag}": 44 * TRAIN_STEPS,
+            "wavelet_dec": dwt * TRAIN_STEPS}
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, (name, got, want)
+
+    # one more step: EMA = mu * old + (1 - mu) * new, and every parameter
+    # that got a gradient moved
+    mu = cfg.model.ema_rate
+    ema_old = {k: v.clone() for k, v in trainer.state.ema.items()}
+    m = trainer.train_step(trainer.state, batches[TRAIN_STEPS])
+    loss, grad_norm = float(m.loss), float(m.grad_norm)
+    assert torch.isfinite(torch.tensor([loss, grad_norm])).all(), (loss,
+                                                                   grad_norm)
+    ema_err = 0.0
+    for k, p in trainer.model.named_parameters():
+        want_ema = mu * ema_old[k] + (1.0 - mu) * p.detach()
+        ema_err = max(ema_err, float((trainer.state.ema[k] - want_ema)
+                                     .abs().max()))
+        if p.grad is not None:
+            assert not torch.equal(p.detach(), p0[k]), f"{k} did not move"
+    # the shadow update rounds as this expression does: bit for bit
+    assert ema_err == 0.0, ema_err
+    del p0, ema_old
+
+    # save -> resume restores the step and the state bit for bit
+    ckpt_dir = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_ckpt")
+    try:
+        t = time.perf_counter()
+        path = trainer.save(os.path.join(ckpt_dir, name))
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        resumed = DiffusionTrainer(cfg, hfrm_state_dict=hfrm_sd, **quiet)
+        t = time.perf_counter()
+        resumed.resume(path)
+        resume_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert resumed.state.step == trainer.state.step
+    for a, b in ((trainer.model.state_dict(), resumed.model.state_dict()),
+                 (trainer.state.ema, resumed.state.ema)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    opt_a = trainer.state.optimizer.state_dict()["state"]
+    opt_b = resumed.state.optimizer.state_dict()["state"]
+    assert all(torch.equal(v, opt_b[i][k]) for i, s in opt_a.items()
+               for k, v in s.items())
+    del resumed
+    emit("train", profile=name, dtype=cfg.parallel.compute_dtype,
+         crops=n_crops, patch=cfg.data.patch_size, params_unet=n_params,
+         use_gt_in_train=cfg.model.use_gt_in_train, steps=TRAIN_STEPS + 1,
+         launches=got, launches_per_step=44, first_step_ms=first_ms,
+         ms_per_step=steady_ms, peak_bytes=peak, loss=loss,
+         grad_norm=grad_norm, ema_max_err=ema_err, ckpt_bytes=size,
+         save_s=save_s, resume_s=resume_s)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -305,7 +638,7 @@ def main():
               file=sys.stderr)
         return 2
     from wavedm_tpu_torch.config import production_profile, reference_profile
-    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.inference.loader import build_hfrm, build_restorer
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -317,7 +650,8 @@ def main():
     t = time.perf_counter()
     _build.library()
     emit("build", seconds=time.perf_counter() - t,
-         nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH)
+         nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
+         ptxas=ptxas_report(_build.last_ptxas))
 
     ref_cfg = reference_profile()
     prod_cfg = production_profile()
@@ -325,6 +659,7 @@ def main():
         cfg.parallel.fused_groupnorm = True
     k_per_image = 45
     rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
+    rows.update(check_fused_kernels(ref_cfg))
 
     small_parity()
 
@@ -360,7 +695,7 @@ def main():
              ms_per_image=steady_ms / N_IMAGES, peak_bytes=peak,
              out_min=float(out.min()), out_max=float(out.max()),
              out_mean=float(out.mean()))
-    fused_out = out
+    fused_out, fused_ms = out, steady_ms
     unet_sd, hfrm_sd = rest.unet.state_dict(), rest.hfrm.state_dict()
     del rest
 
@@ -387,13 +722,63 @@ def main():
          mean_abs_diff=float((fused_out - unfused_out).abs().mean()),
          tol_bf16_vs_f32_gap=bf16_gap, unfused_ms_per_image=unfused_ms / N_IMAGES)
 
+    # production profile with the fused ResnetBlock kernel at all 44 pairs
+    # (the plain GroupNorm at the 7 other norm sites): same weights, inputs
+    # and noise, held to the same gap
+    fr_cfg = production_profile()
+    fr_cfg.parallel.fused_resblock = True
+    fr_cfg.validate()
+    fr_rest = build_restorer(fr_cfg, unet_sd, hfrm_sd, device="cuda")
+    reset_counts()
+    fr_out, _, fr_first_ms = restore_timed(fr_rest, images)
+    counts = read_counts()
+    check_output(fr_out)
+    steps = len(fr_rest.seq)
+    want = {"fused_gn_swish_conv_bf16": 44 * steps, "wavelet_dec": 2,
+            "wavelet_rec": 1}
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, ("restore_fused_resblock", got, want)
+    for key, val in counts.items():
+        launches[key] += val
+    _, _, fr_ms = restore_timed(fr_rest, images)
+    del fr_rest
+    fr_diff = float((fr_out - fused_out).abs().max())
+    assert fr_diff <= bf16_gap, (fr_diff, bf16_gap)
+    emit("restore_fused_resblock", profile="production", launches=got,
+         first_ms_per_image=fr_first_ms / N_IMAGES,
+         ms_per_image=fr_ms / N_IMAGES,
+         fused_groupnorm_ms_per_image=fused_ms / N_IMAGES,
+         max_abs_diff_vs_fused_groupnorm=fr_diff,
+         mean_abs_diff=float((fr_out - fused_out).abs().mean()),
+         tol_bf16_vs_f32_gap=bf16_gap)
+    del unet_sd
+    torch.cuda.empty_cache()
+
+    train_parity()
+
+    # stage-2 training at flagship width through the fused kernel
+    ref_train = reference_profile()
+    prod_train = production_profile()
+    for cfg in (ref_train, prod_train):
+        cfg.parallel.fused_resblock = True
+        cfg.validate()
+    hfrm_train = build_hfrm(prod_train, None, "cuda").state_dict()
+    for name, cfg, hfrm in (("reference", ref_train, None),
+                            ("production", prod_train, hfrm_train)):
+        n_crops = cfg.training.batch_size * cfg.training.patch_n
+        counts = train_profile(name, cfg, n_crops, hfrm)
+        for key, val in counts.items():
+            launches[key] += val
+    del hfrm_train
+
     for key, val in launches.items():
         assert val > 0, f"kernel {key} never ran on the main path"
     kernels = [dict(name=key, route="cuda", source=row["source"],
                     replaces=row["replaces"], launches=launches[key],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by="bytes", library_ms=row["library_ms"])
+                    bound_by=row.get("bound_by", "bytes"),
+                    library_ms=row["library_ms"])
                for key, row in rows.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

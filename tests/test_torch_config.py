@@ -26,8 +26,8 @@ def test_yaml_configs_load_as_in_jax(path):
     assert ours == theirs
 
 
-# keys the restoration path does not read (the production YAML sets its own)
-TRAINING_ONLY = {("model", "use_gt_in_train"), ("sampling", "batch_size"),
+# keys no ported path reads (the production YAML sets its own)
+TRAINING_ONLY = {("sampling", "batch_size"),
                  ("hfrm", "batch_size"), ("hfrm", "n_epochs"),
                  ("hfrm", "best_psnr_init"), ("hfrm", "remat")}
 
@@ -39,8 +39,8 @@ TRAINING_ONLY = {("model", "use_gt_in_train"), ("sampling", "batch_size"),
 def test_profiles_match_their_yaml(profile, name):
     built = dataclasses.asdict(profile())
     loaded = dataclasses.asdict(load_config(os.path.join(CONFIGS, name)))
-    for section in ("data", "model", "diffusion", "sampling", "parallel",
-                    "hfrm"):
+    for section in ("data", "model", "diffusion", "training", "sampling",
+                    "optim", "parallel", "hfrm"):
         for key, value in built[section].items():
             if (section, key) not in TRAINING_ONLY:
                 assert value == loaded[section][key], (section, key)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-and a small restoration through the kernels against the CPU path.
+a small restoration and a train step through the kernels against the CPU
+path, and the kernels' refusal of autograd.
 
 Marked ``cuda``; every test skips where no card is present.  On the GPU
 machine (which has no jax, so the JAX conftest is left out):
@@ -91,3 +92,117 @@ def test_small_restoration_matches_cpu(cuda):
     ref, _ = cpu.restore_image(images, noise=noise)
     out, _ = gpu.restore_image(images, noise=noise)
     np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+# The flagship UNet's 17 GN -> swish -> conv3x3 site shapes (H = W, Cin,
+# Cout) at 64x64 patches: chip_smoke.fused_sites derives them.
+FUSED_SHAPES = [(64, 128, 128), (64, 256, 128), (64, 384, 128),
+                (32, 128, 256), (32, 256, 256), (32, 384, 256), (32, 512, 256),
+                (32, 768, 256), (16, 256, 512), (16, 512, 512), (16, 768, 512),
+                (16, 1024, 512), (16, 1280, 512), (8, 512, 768), (8, 768, 768),
+                (8, 1280, 768), (8, 1536, 768)]
+
+
+def _fused_inputs(device, n, cin, cout, h, w, dtype, seed=2):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(n, cin, h, w, device=device, generator=g) * 2
+         + 0.5).to(dtype)
+    sg = torch.randn(cin, device=device, generator=g) * 0.1 + 1
+    bg = torch.randn(cin, device=device, generator=g) * 0.1
+    wk = torch.randn(cout, cin, 3, 3, device=device, generator=g) \
+        * (9 * cin) ** -0.5
+    b = torch.randn(cout, device=device, generator=g) * 0.1
+    return x, sg, bg, wk, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES + [(5, 64, 96), (7, 32, 3)],
+                         ids=lambda s: f"{s[0]}x{s[0]}_{s[1]}to{s[2]}")
+def test_fused_kernel_matches_plain(cuda, shape, dtype):
+    """f32: 1e-4 of the output scale (summation order only; TF32 off).
+    bf16: both round the same y once; the outputs round float32 sums taken
+    in another order, so they may part by a bf16 ulp (2**-7 of the scale)."""
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    h, cin, cout = shape
+    key = "fused_gn_swish_conv_" + ("f32" if dtype == torch.float32
+                                    else "bf16")
+    args = _fused_inputs(cuda, 2, cin, cout, h, h + 3 * (h < 8), dtype)
+    before = fr.launches[key]
+    out = fr.fused_gn_swish_conv(*args, dtype)
+    ref = fr.fused_gn_swish_conv_plain(*args, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * float(ref.float().abs().max()), err
+    assert fr.launches[key] == before + 1
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 512), (8, 64, 96)])
+def test_fused_gradients_match_autograd_of_the_composition(cuda, shape):
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    h, cin, cout = shape
+    args = [t.requires_grad_() for t in
+            _fused_inputs(cuda, 2, cin, cout, h, h, torch.float32)]
+    ref_args = [t.detach().clone().requires_grad_() for t in args]
+    g = torch.randn(2, cout, h, h, device=cuda)
+    (fr.fused_gn_swish_conv(*args, torch.float32) * g).sum().backward()
+    (fr.fused_gn_swish_conv_reference(*ref_args, torch.float32)
+     * g).sum().backward()
+    for a, r in zip(args, ref_args):
+        err = float((a.grad - r.grad).abs().max())
+        assert err <= 1e-4 * float(r.grad.abs().max()), err
+
+
+def test_kernel_wrappers_refuse_autograd_on_the_card(cuda):
+    """None of the PR 4 kernels has a gradient: under autograd they raise
+    rather than hand back a tensor that cuts the graph."""
+    x = torch.randn(1, 32, 8, 8, device=cuda, requires_grad=True)
+    w, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        groupnorm_cuda.group_norm(x, w, b, swish=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wavelet_cuda.wavelet_dec_cuda(x[:, :3].contiguous())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wavelet_cuda.wavelet_rec_cuda(x[:, :16].contiguous())
+    with torch.no_grad():
+        groupnorm_cuda.group_norm(x, w, b, swish=True)
+        wavelet_cuda.wavelet_rec_cuda(wavelet_cuda.wavelet_dec_cuda(
+            x[:, :3].contiguous()))
+
+
+def test_train_step_matches_cpu(cuda):
+    """One SGD step of a small fused-resblock UNet on the card (kernels)
+    against the same step on the CPU (plain versions), float32."""
+    from wavedm_tpu_torch.config import config_from_dict
+    from wavedm_tpu_torch.inference.loader import build_unet
+    from wavedm_tpu_torch.training.state import create_train_state
+    from wavedm_tpu_torch.training.train_step import make_train_step
+
+    cfg = config_from_dict({
+        "data": {"image_size": 8, "patch_size": 32},
+        "model": {"ch": 64, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [4]},
+        "diffusion": {"num_diffusion_timesteps": 50},
+        "optim": {"optimizer": "SGD", "lr": 1e-5},
+        "parallel": {"fused_resblock": True}})
+    batch = np.random.default_rng(0).random((4, 32, 32, 6), dtype=np.float32)
+    t = torch.tensor([3, 46, 20, 29])
+    e = torch.randn(4, 3, 8, 8, generator=torch.Generator().manual_seed(1))
+    out, weights = [], None
+    for dev in ("cpu", cuda):
+        # the CPU model's random weights, carried to the card
+        model = build_unet(cfg, weights, dev, train=True)
+        weights = weights or {k: v.clone()
+                              for k, v in model.state_dict().items()}
+        state = create_train_state(model, cfg.optim, 0)
+        m = make_train_step(cfg, model)(state, batch, t=t, e=e)
+        out.append((float(m.loss), {k: v.cpu() for k, v in
+                                    model.state_dict().items()}))
+    (l_cpu, sd_cpu), (l_gpu, sd_gpu) = out
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k in sd_cpu:
+        err = float((sd_gpu[k] - sd_cpu[k]).abs().max())
+        assert err <= 1e-4 * float(sd_cpu[k].abs().max()), k

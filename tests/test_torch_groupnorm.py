@@ -65,3 +65,23 @@ def test_cpu_calls_run_plain_and_count_nothing():
     w, b = torch.ones(64), torch.zeros(64)
     torch.testing.assert_close(group_norm(x, w, b), group_norm_plain(x, w, b))
     assert groupnorm_cuda.launches == before
+
+
+@pytest.mark.parametrize("grad_of", ["x", "weight", "bias"])
+def test_refuses_autograd_as_jax_does(grad_of):
+    """The kernel has no gradient.  JAX's fused_group_norm refuses
+    jax.grad; the port's group_norm refuses autograd on every device
+    instead of cutting the gradient silently."""
+    import jax
+
+    xj = jnp.ones((1, 4, 4, 32))
+    with pytest.raises(Exception, match="Linearization failed"):
+        jax.grad(lambda a: jnp.sum(fused_group_norm(
+            a, jnp.ones(32), jnp.zeros(32))))(xj)
+    args = {"x": torch.randn(1, 32, 4, 4), "weight": torch.ones(32),
+            "bias": torch.zeros(32)}
+    args[grad_of].requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        group_norm(args["x"], args["weight"], args["bias"], swish=True)
+    with torch.no_grad():        # inference under no_grad still runs
+        group_norm(args["x"], args["weight"], args["bias"], swish=True)

@@ -16,7 +16,8 @@ import torch
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.inference import loader
-from wavedm_tpu_torch.ops import _build, groupnorm_cuda, wavelet_cuda
+from wavedm_tpu_torch.ops import (_build, fused_resblock, groupnorm_cuda,
+                                  wavelet_cuda)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "wavedm_tpu", "yaml",
@@ -50,6 +51,15 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         rest = build_restorer(cfg.validate(), None, None, device="cpu")
         out, _ = rest.restore_image(np.full((32, 32, 3), 0.5, np.float32))
         assert out.shape == (1, 32, 32, 3)
+        # and so does a training step through the fused ResnetBlock op
+        from wavedm_tpu_torch.cli.train_diffusion import smoke_batches
+        from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+        cfg.parallel.fused_groupnorm = False
+        cfg.parallel.fused_resblock = True
+        trainer = DiffusionTrainer(cfg.validate(), device="cpu",
+                                   log_fn=lambda s: None)
+        trainer.fit(smoke_batches(cfg, n_crops=2, n_batches=1), max_steps=1)
+        assert trainer.state.step == 1
         loaded = [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]
         assert not loaded, loaded
         print("imported", len(names))
@@ -94,12 +104,19 @@ def _no_library():
         torch.ones(64, device="meta"), torch.zeros(64, device="meta")),
     lambda: wavelet_cuda.wavelet_dec_cuda(torch.empty(1, 3, 8, 8, device="meta")),
     lambda: wavelet_cuda.wavelet_rec_cuda(torch.empty(1, 48, 2, 2, device="meta")),
-], ids=["group_norm", "wavelet_dec", "wavelet_rec"])
+    lambda: fused_resblock.fused_gn_swish_conv(
+        torch.empty(2, 64, 4, 4, device="meta"),
+        torch.ones(64, device="meta"), torch.zeros(64, device="meta"),
+        torch.empty(32, 64, 3, 3, device="meta"),
+        torch.zeros(32, device="meta"), torch.float32),
+], ids=["group_norm", "wavelet_dec", "wavelet_rec", "fused_gn_swish_conv"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     """A non-CPU tensor goes to the kernel: with no library the wrapper
     raises, with no plain fallback and no launch counted."""
     monkeypatch.setattr(_build, "library", _no_library)
-    before = (dict(groupnorm_cuda.launches), dict(wavelet_cuda.launches))
+    counts = (groupnorm_cuda.launches, wavelet_cuda.launches,
+              fused_resblock.launches)
+    before = tuple(dict(c) for c in counts)
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         call()
-    assert (groupnorm_cuda.launches, wavelet_cuda.launches) == before
+    assert counts == before

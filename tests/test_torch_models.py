@@ -87,12 +87,14 @@ def unet_params():
         jnp.zeros((1,)))["params"]
 
 
-def _both_unets(params, x, t, fused_gn, jax_dtype, torch_dtype):
-    jmodel = JaxUNet(fused_gn=fused_gn, compute_dtype=jax_dtype, **UNET_KW)
+def _both_unets(params, x, t, fused_gn, jax_dtype, torch_dtype,
+                fused_block=False):
+    jmodel = JaxUNet(fused_gn=fused_gn, compute_dtype=jax_dtype,
+                     fused_block=fused_block, **UNET_KW)
     ref = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x),
                                 jnp.asarray(t))
     model = DiffusionUNet(fused_gn=fused_gn, compute_dtype=torch_dtype,
-                          **UNET_KW).eval()
+                          fused_block=fused_block, **UNET_KW).eval()
     model.load_state_dict(unet_state_dict_from_flax(params, 2, 1))
     with torch.no_grad():
         y = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()),
@@ -118,6 +120,60 @@ def test_unet_bf16_matches_jax_forward(unet_params):
     y, ref = _both_unets(unet_params, x, t, True, jnp.bfloat16,
                          torch.bfloat16)
     assert float(np.abs(y - ref).max()) <= 2.0 ** -6 * float(np.abs(ref).max())
+
+
+def test_unet_fused_block_keys_match_jax():
+    """fused_resblock keeps the parameter tree (JAX) and the state_dict
+    keys (port) of the unfused model."""
+    x, t = jnp.zeros((1, 16, 16, 6)), jnp.zeros((1,))
+    trees = [jax.eval_shape(JaxUNet(fused_block=fb, **UNET_KW).init,
+                            jax.random.PRNGKey(0), x, t)["params"]
+             for fb in (False, True)]
+    assert (jax.tree_util.tree_structure(trees[0])
+            == jax.tree_util.tree_structure(trees[1]))
+    sd = DiffusionUNet(fused_block=True, **UNET_KW).state_dict()
+    assert sd.keys() == DiffusionUNet(**UNET_KW).state_dict().keys()
+    params = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                    trees[1])
+    assert sd.keys() == unet_state_dict_from_flax(params, 2, 1).keys()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_fused_block_matches_jax_forward(unet_params, dtype):
+    """Both ResnetBlock pairs through the fused op (its CPU path) against
+    JAX's ``fused_block`` model, at the bounds of the unfused comparison."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 16, 16, 6)).astype(np.float32)
+    t = np.array([7.0, 640.0], np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    y, ref = _both_unets(unet_params, x, t, False, jdt, tdt, True)
+    if dtype == "float32":
+        np.testing.assert_allclose(y, ref, atol=2e-4, rtol=1e-3)
+    else:
+        assert float(np.abs(y - ref).max()) <= 2.0 ** -6 * float(
+            np.abs(ref).max())
+
+
+@pytest.mark.parametrize("fused_block", [False, True])
+def test_cast_at_use_equals_stored_weights(fused_block):
+    """Training keeps float32 parameters and casts conv and linear weights
+    to bfloat16 at each use; serving stores them in bfloat16.  The same
+    rounding, so the same bits out."""
+    torch.manual_seed(0)
+    sd = DiffusionUNet(**UNET_KW).state_dict()
+    stored, at_use = (DiffusionUNet(compute_dtype=torch.bfloat16,
+                                    fused_block=fused_block,
+                                    keep_f32_params=keep, **UNET_KW).eval()
+                      for keep in (False, True))
+    for model in (stored, at_use):
+        model.load_state_dict(sd)
+    assert {p.dtype for p in at_use.parameters()} == {torch.float32}
+    assert torch.bfloat16 in {p.dtype for p in stored.parameters()}
+    x = torch.randn(2, 6, 16, 16, generator=torch.Generator().manual_seed(1))
+    t = torch.tensor([3.0, 500.0])
+    with torch.no_grad():
+        assert torch.equal(stored(x, t), at_use(x, t))
 
 
 def test_hfrm_matches_jax_forward():
@@ -166,3 +222,17 @@ def test_load_torch_checkpoint(tmp_path, ema):
     model.load_state_dict(loaded)
     want = shadow if ema else sd
     torch.testing.assert_close(model.conv_in.weight, want["conv_in.weight"])
+
+
+def test_flagship_fused_sites():
+    """The 44 GN -> swish -> conv3x3 pairs of a flagship forward fall on
+    the 17 shapes the card tests hold the kernel to (derived on the meta
+    device, as chip_smoke.py does)."""
+    import chip_smoke
+    from test_torch_cuda import FUSED_SHAPES
+
+    sites = chip_smoke.fused_sites(reference_profile(), 2)
+    assert sum(sites.values()) == 44
+    assert sorted((h, cin, cout) for cin, h, w, cout in sites) == sorted(
+        FUSED_SHAPES)
+    assert all(h == w for _, h, w, _ in sites)

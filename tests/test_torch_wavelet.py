@@ -83,3 +83,19 @@ def test_wrappers_do_not_count_cpu_calls():
     before = dict(wavelet_cuda.launches)
     wavelet_rec(wavelet_dec(torch.zeros(1, 3, 8, 8)))
     assert wavelet_cuda.launches == before
+
+
+def test_cpu_path_is_differentiable_as_jax():
+    """On the CPU the DWT runs its plain version under autograd, as JAX's
+    wavelet_dec is differentiable; the gradient is JAX's."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (2, 3, 16, 24)).astype(np.float32)
+    g = rng.standard_normal((2, 48, 4, 6)).astype(np.float32)
+    want = jax.grad(lambda a: jnp.sum(jax_dec(a, 2, "NCHW") * g))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    (wavelet_dec(xt) * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want),
+                               atol=_tol(2), rtol=0)

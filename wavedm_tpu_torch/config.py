@@ -2,7 +2,7 @@
 
 Same sections, keys, defaults and validation as ``wavedm_tpu/config.py``, so
 the YAML files under ``wavedm_tpu/configs/`` load unchanged.  ``yaml`` is
-imported only inside :func:`load_config`; everything the restoration path
+imported only inside the YAML loaders; everything the restoration path
 runs builds its ``Config`` in code.
 """
 
@@ -204,7 +204,7 @@ class ParallelConfig:
     compute_dtype: str = "float32"   # activations: bfloat16 | float32
     # GroupNorm(+swish) through the CUDA kernel at every UNet norm site
     fused_groupnorm: bool = False
-    # GN->swish->conv3x3 fused kernel: not ported yet (raises when set)
+    # GN->swish->conv3x3 through the fused CUDA kernel at every ResnetBlock
     fused_resblock: bool = False
 
     def validate(self) -> None:
@@ -294,14 +294,37 @@ def config_from_dict(raw: dict) -> Config:
     return Config(**sections).validate()
 
 
-def load_config(path: str) -> Config:
-    """Load and validate a YAML config file (the reference's schema)."""
+def apply_overrides(raw: dict, overrides) -> dict:
+    """Apply ``section.key=value`` strings (values YAML-parsed, as the
+    JAX package's ``--set``) to a raw config mapping; unknown sections and
+    keys still fail in :func:`config_from_dict`."""
+    import yaml
+
+    for ov in overrides:
+        key, eq, sval = ov.partition("=")
+        parts = key.strip().split(".")
+        if not eq or len(parts) != 2 or not sval.strip():
+            raise ConfigError(
+                f"override '{ov}' must look like section.key=value")
+        sec, k = parts
+        if not isinstance(raw.get(sec, {}), dict):
+            raise ConfigError(f"override '{ov}': section '{sec}' is not a "
+                              "mapping")
+        raw.setdefault(sec, {})[k] = yaml.safe_load(sval)
+    return raw
+
+
+def load_config(path: str, overrides=()) -> Config:
+    """Load and validate a YAML config file (the reference's schema), with
+    ``section.key=value`` overrides applied before validation."""
     import yaml
 
     with open(path, "r") as f:
         raw = yaml.safe_load(f)
     if not isinstance(raw, dict):
         raise ConfigError(f"config file {path} did not parse to a mapping")
+    if overrides:
+        raw = apply_overrides(raw, overrides)
     return config_from_dict(raw)
 
 
@@ -313,8 +336,15 @@ def reference_profile() -> Config:
 
 def production_profile() -> Config:
     """``raindrop_wavelet_production.yaml``: 10 steps over [0, 300) from the
-    HFRM LL band, keep x0_preds[-1], bfloat16."""
+    HFRM LL band, keep x0_preds[-1], bfloat16; it trains on the HFRM's
+    conditioning (``use_gt_in_train: false``) with 2 x 8 crops a step at
+    lr 1e-4."""
     cfg = Config()
+    cfg.model.use_gt_in_train = False
+    cfg.optim.lr = 1e-4
+    cfg.training = TrainingConfig(batch_size=2, n_epochs=100000,
+                                  snapshot_freq=2500,
+                                  validation_freq=1000000)
     cfg.sampling = SamplingConfig(sampling_timesteps=10, t_start=300,
                                   init_ll="hfrm", x0_pred_index=-1)
     cfg.parallel = ParallelConfig(compute_dtype="bfloat16")

@@ -26,40 +26,23 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gn_stats.cuh"
+
 namespace {
+
+using wavedm::load_vec;
+using wavedm::to_f32;
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// 16-byte vector load / store: 4 floats or 8 bfloat16s.
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
+// 16-byte vector store: 4 floats or 8 bfloat16s.
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&v)[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
 }
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
                                           const float (&v)[8]) {
@@ -68,12 +51,6 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16(v[i]);
   *reinterpret_cast<uint4*>(p) = t;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <bool SWISH>
@@ -92,8 +69,6 @@ __global__ void group_norm_kernel(const T* __restrict__ x,
                                   float eps) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ float s_ab[];  // a[0:cg], b[cg:2cg]
-  __shared__ float s_part[2][32];
-  __shared__ float s_stat[2];
 
   const int ng = blockIdx.x;
   const int g = ng % G;
@@ -104,49 +79,8 @@ __global__ void group_norm_kernel(const T* __restrict__ x,
   // every vector stays inside one channel and the segment start is aligned
   const bool vec = (HW % V) == 0;
 
-  float s1 = 0.f, s2 = 0.f;
-  if (vec) {
-    for (int e = threadIdx.x * V; e < len; e += blockDim.x * V) {
-      float v[V];
-      load_vec(xs + e, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s1 += v[i];
-        s2 += v[i] * v[i];
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < len; e += blockDim.x) {
-      const float v = to_f32(xs[e]);
-      s1 += v;
-      s2 += v * v;
-    }
-  }
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    s_part[0][warp] = s1;
-    s_part[1][warp] = s2;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    s1 = lane < nwarps ? s_part[0][lane] : 0.f;
-    s2 = lane < nwarps ? s_part[1][lane] : 0.f;
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      const float n = (float)len;
-      const float mean = s1 / n;
-      const float var = s2 / n - mean * mean;
-      s_stat[0] = mean;
-      s_stat[1] = rsqrtf(var + eps);
-    }
-  }
-  __syncthreads();
-  const float mean = s_stat[0], inv = s_stat[1];
+  const float2 stat = wavedm::segment_mean_rstd(xs, len, vec, eps);
+  const float mean = stat.x, inv = stat.y;
   for (int k = threadIdx.x; k < cg; k += blockDim.x) {
     const float a = inv * gamma[g * cg + k];
     s_ab[k] = a;

@@ -6,6 +6,8 @@
 random weights drawn from ``cfg.training.seed`` by a ``torch.Generator``
 (smoke runs and tests).  Models are built on the meta device first, so no
 memory is touched before the weights land on the target device.
+``build_unet(..., train=True)`` gives the trainable UNet: float32
+parameters cast at use, train mode, gradients on.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def _materialize(model: nn.Module, weights: Weights, device: torch.device,
-                 seed: int, ema: bool = False) -> nn.Module:
+                 seed: int, ema: bool = False,
+                 train: bool = False) -> nn.Module:
     model = model.to_empty(device=device)
     if weights is None:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -70,15 +73,15 @@ def _materialize(model: nn.Module, weights: Weights, device: torch.device,
         if isinstance(weights, str):
             weights = load_torch_checkpoint(weights, ema=ema)
         model.load_state_dict(weights)
-    return model.eval().requires_grad_(False)
+    return model.train(train).requires_grad_(train)
 
 
 def build_unet(cfg: Config, weights: Weights = None, device=None,
-               ema: bool = False) -> DiffusionUNet:
+               ema: bool = False, train: bool = False) -> DiffusionUNet:
     device = resolve_device(device)
     with torch.device("meta"):
-        unet = DiffusionUNet.from_config(cfg)
-    return _materialize(unet, weights, device, cfg.training.seed, ema)
+        unet = DiffusionUNet.from_config(cfg, keep_f32_params=train)
+    return _materialize(unet, weights, device, cfg.training.seed, ema, train)
 
 
 def build_hfrm(cfg: Config, weights: Weights = None, device=None) -> HFRM:

@@ -3,8 +3,10 @@
 Numerics follow ``wavedm_tpu/models/layers.py``: GroupNorm(32, eps 1e-6)
 with float32 statistics, nearest x2 upsampling, the asymmetric (0,1,0,1)
 downsample pad, and attention logits in float32 whatever the compute dtype.
-Convolutions and linear layers run in the dtype of their weights (see
-``cast_compute``); norm parameters stay float32.
+Convolutions and linear layers run in the compute dtype (see
+``cast_compute``): for serving their weights are stored in it, for training
+they stay float32 and are cast at each use, as flax's ``dtype=`` does; norm
+parameters stay float32.
 """
 
 from __future__ import annotations
@@ -15,10 +17,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from wavedm_tpu_torch.ops.fused_resblock import fused_gn_swish_conv
 from wavedm_tpu_torch.ops.groupnorm_cuda import group_norm
 
 __all__ = [
     "get_timestep_embedding",
+    "Conv2d",
+    "Linear",
     "Normalize",
     "Upsample",
     "Downsample",
@@ -43,13 +48,50 @@ def get_timestep_embedding(timesteps: torch.Tensor,
     return emb
 
 
-def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Store every Conv2d/Linear weight in the compute dtype (the JAX
-    package casts its float32 params to it at each use, which rounds the
-    same way); norm and residual-scale parameters stay float32."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in ``compute_dtype`` when it is set, casting
+    its weight and bias at each use (a no-op when they are stored in it)."""
+
+    compute_dtype = None
+    keep_f32 = False       # read by the fused kernel, which casts itself
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x, self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with the cast-at-use ``compute_dtype`` of
+    :class:`Conv2d`."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(dt), self.bias.to(dt))
+
+
+def cast_compute(module: nn.Module, dtype: torch.dtype,
+                 store: bool = True) -> nn.Module:
+    """Run every conv and linear layer in the compute dtype.
+
+    ``store=True`` (serving) stores the weights in it; ``store=False``
+    (training) keeps them float32 and casts them at each use, as the JAX
+    package's flax ``dtype=`` does.  Both round the same way, so the two
+    forwards are bit-identical.  Convs that feed the fused kernel
+    (``keep_f32``) stay float32 either way: the kernel casts the weight and
+    adds the bias in float32, as the JAX kernel does.  Norm and
+    residual-scale parameters stay float32."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            m.to(dtype)
+            m.compute_dtype = dtype
+            if store and not getattr(m, "keep_f32", False):
+                m.to(dtype)
     return module
 
 
@@ -85,7 +127,7 @@ class Upsample(nn.Module):
         super().__init__()
         self.with_conv = with_conv
         if with_conv:
-            self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+            self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
@@ -99,7 +141,7 @@ class Downsample(nn.Module):
         super().__init__()
         self.with_conv = with_conv
         if with_conv:
-            self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+            self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.with_conv:
@@ -109,30 +151,50 @@ class Downsample(nn.Module):
 
 class ResnetBlock(nn.Module):
     """GN -> swish -> conv -> + temb_proj -> GN -> swish -> conv, with a 1x1
-    (or 3x3) shortcut when the channel count changes."""
+    (or 3x3) shortcut when the channel count changes.
+
+    ``fused_block`` runs each GN -> swish -> conv3x3 pair through the fused
+    kernel (``ops/fused_resblock.py``) with the same parameters and keys;
+    the second pair stays unfused while dropout is active in training (the
+    kernel has no dropout point), as in the JAX block."""
 
     def __init__(self, in_channels: int, out_channels: int | None = None,
                  temb_channels: int = 512, conv_shortcut: bool = False,
-                 dropout: float = 0.0, fused_gn: bool = False):
+                 dropout: float = 0.0, fused_gn: bool = False,
+                 fused_block: bool = False):
         super().__init__()
         out_channels = out_channels or in_channels
+        self.fused_block = fused_block
         self.norm1 = Normalize(in_channels, fused_gn, swish=True)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.temb_proj = nn.Linear(temb_channels, out_channels)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.temb_proj = Linear(temb_channels, out_channels)
         self.norm2 = Normalize(out_channels, fused_gn, swish=True)
         self.dropout = nn.Dropout(dropout)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv1.keep_f32 = self.conv2.keep_f32 = fused_block
         if in_channels != out_channels:
             if conv_shortcut:
-                self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 3,
-                                               padding=1)
+                self.conv_shortcut = Conv2d(in_channels, out_channels, 3,
+                                            padding=1)
             else:
-                self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+                self.nin_shortcut = Conv2d(in_channels, out_channels, 1)
+
+    def _fused(self, x: torch.Tensor, norm: Normalize,
+               conv: Conv2d) -> torch.Tensor:
+        # activations arrive in the compute dtype
+        return fused_gn_swish_conv(x, norm.weight, norm.bias, conv.weight,
+                                   conv.bias, x.dtype)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
+        if self.fused_block:
+            h = self._fused(x, self.norm1, self.conv1)
+        else:
+            h = self.conv1(self.norm1(x))
         h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.dropout(self.norm2(h)))
+        if self.fused_block and (self.dropout.p == 0.0 or not self.training):
+            h = self._fused(h, self.norm2, self.conv2)
+        else:
+            h = self.conv2(self.dropout(self.norm2(h)))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
@@ -147,10 +209,10 @@ class AttnBlock(nn.Module):
     def __init__(self, channels: int, fused_gn: bool = False):
         super().__init__()
         self.norm = Normalize(channels, fused_gn)
-        self.q = nn.Conv2d(channels, channels, 1)
-        self.k = nn.Conv2d(channels, channels, 1)
-        self.v = nn.Conv2d(channels, channels, 1)
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.q = Conv2d(channels, channels, 1)
+        self.k = Conv2d(channels, channels, 1)
+        self.v = Conv2d(channels, channels, 1)
+        self.proj_out = Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

@@ -8,8 +8,13 @@ upsampling with skip-concat (num_res_blocks + 1 blocks per level), and
 GN -> swish -> ``conv_out``.
 
 ``compute_dtype`` threads through every conv and linear layer; the output
-returns in float32.  The ``use_window`` and ``wavelet_in_unet`` hooks of the
-JAX model are not ported yet and raise.
+returns in float32.  ``keep_f32_params`` (training) keeps every parameter
+float32 and casts conv and linear weights at each use, as the JAX model's
+flax ``dtype=`` does; without it (serving) they are stored in the compute
+dtype.  ``fused_block`` runs every ResnetBlock GN -> swish -> conv3x3 pair
+through the fused kernel; attention and ``norm_out`` keep the plain
+GroupNorm, as in JAX.  The ``use_window`` and ``wavelet_in_unet`` hooks of
+the JAX model are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import torch.nn as nn
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.layers import (
     AttnBlock,
+    Conv2d,
     Downsample,
+    Linear,
     Normalize,
     ResnetBlock,
     Upsample,
@@ -39,11 +46,11 @@ class TimestepMLP(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
         self.ch = ch
-        self.dense = nn.ModuleList([nn.Linear(ch, ch * 4),
-                                    nn.Linear(ch * 4, ch * 4)])
+        self.dense = nn.ModuleList([Linear(ch, ch * 4),
+                                    Linear(ch * 4, ch * 4)])
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        dt = self.dense[0].weight.dtype
+        dt = self.dense[0].compute_dtype or self.dense[0].weight.dtype
         temb = get_timestep_embedding(t, self.ch).to(dt)
         temb = nn.functional.silu(self.dense[0](temb))
         return self.dense[1](temb)
@@ -59,11 +66,11 @@ class DiffusionUNet(nn.Module):
                  dropout: float = 0.0, resamp_with_conv: bool = True,
                  resolution: int = 64, compute_dtype=torch.float32,
                  fused_gn: bool = False, use_window: bool = False,
-                 wavelet_in_unet: bool = False, fused_block: bool = False):
+                 wavelet_in_unet: bool = False, fused_block: bool = False,
+                 keep_f32_params: bool = False):
         super().__init__()
         for name, value in (("use_window", use_window),
-                            ("wavelet_in_unet", wavelet_in_unet),
-                            ("fused_resblock", fused_block)):
+                            ("wavelet_in_unet", wavelet_in_unet)):
             if value:
                 raise NotImplementedError(
                     f"DiffusionUNet: {name} is not ported yet")
@@ -72,7 +79,7 @@ class DiffusionUNet(nn.Module):
         self.compute_dtype = compute_dtype
         temb_ch = ch * 4
         self.temb = TimestepMLP(ch)
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
 
         curr_res = resolution
         in_ch_mult = (1,) + tuple(ch_mult)
@@ -86,7 +93,8 @@ class DiffusionUNet(nn.Module):
             for _ in range(num_res_blocks):
                 level.block.append(ResnetBlock(block_in, block_out, temb_ch,
                                                dropout=dropout,
-                                               fused_gn=fused_gn))
+                                               fused_gn=fused_gn,
+                                               fused_block=fused_block))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     level.attn.append(AttnBlock(block_in, fused_gn))
@@ -97,10 +105,12 @@ class DiffusionUNet(nn.Module):
 
         self.mid = nn.Module()
         self.mid.block_1 = ResnetBlock(block_in, block_in, temb_ch,
-                                       dropout=dropout, fused_gn=fused_gn)
+                                       dropout=dropout, fused_gn=fused_gn,
+                                       fused_block=fused_block)
         self.mid.attn_1 = AttnBlock(block_in, fused_gn)
         self.mid.block_2 = ResnetBlock(block_in, block_in, temb_ch,
-                                       dropout=dropout, fused_gn=fused_gn)
+                                       dropout=dropout, fused_gn=fused_gn,
+                                       fused_block=fused_block)
 
         up = []
         for i_level in reversed(range(self.num_levels)):
@@ -113,7 +123,8 @@ class DiffusionUNet(nn.Module):
                     skip_in = ch * in_ch_mult[i_level]
                 level.block.append(ResnetBlock(block_in + skip_in, block_out,
                                                temb_ch, dropout=dropout,
-                                               fused_gn=fused_gn))
+                                               fused_gn=fused_gn,
+                                               fused_block=fused_block))
                 block_in = block_out
                 if curr_res in attn_resolutions:
                     level.attn.append(AttnBlock(block_in, fused_gn))
@@ -124,8 +135,8 @@ class DiffusionUNet(nn.Module):
         self.up = nn.ModuleList(up)
 
         self.norm_out = Normalize(block_in, fused_gn, swish=True)
-        self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
-        cast_compute(self, compute_dtype)
+        self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+        cast_compute(self, compute_dtype, store=not keep_f32_params)
 
     @classmethod
     def from_config(cls, cfg: Config, **overrides) -> "DiffusionUNet":

@@ -1,9 +1,12 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, one ``.so``.
+"""Build and load the port's CUDA kernels into one ``.so``.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into
 ``_build/libwavedm_tpu_torch_kernels.so``, a shared library with a plain C
 interface that :func:`library` loads with ``ctypes``.  Nothing here includes
-PyTorch's headers, which keeps the build at seconds.
+PyTorch's headers, which keeps the build at seconds.  ``ptxas -v`` output
+(registers, shared memory and spills of each kernel) is kept in
+``last_ptxas``.
 
 The build runs at first use and again only when the sources change: a hash
 of the sources and flags is compiled into the library as a marker string,
@@ -26,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libwavedm_tpu_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,11 +39,14 @@ ENTRIES = {
     "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _P),
     "group_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "group_norm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "fused_gn_swish_conv_f32": (_P,) * 7 + (_I,) * 6 + (_F, _P),
+    "fused_gn_swish_conv_bf16": (_P,) * 7 + (_I,) * 6 + (_F, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
-last_build_seconds = None   # wall time of this process's nvcc call, if any
+last_build_seconds = None   # wall time of this process's build, if any
+last_ptxas = ""             # ptxas -v report of that build
 
 
 def _sources():
@@ -83,28 +89,55 @@ def _is_current(digest: str) -> bool:
         return _marker(digest) in f.read()
 
 
+def _run_all(cmds, deadline: float):
+    """Run the commands side by side; raise on the first failure, killing
+    whatever still runs.  Returns their stderr texts."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    try:
+        errs = []
+        for proc, cmd in zip(procs, cmds):
+            _, err = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+            errs.append(err)
+        return errs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` unless the library is current; returns its path."""
-    global last_build_seconds
+    global last_build_seconds, last_ptxas
     digest = source_hash()
     if not force and _is_current(digest):
         return LIB_PATH
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, f"-DWAVEDM_SRC_HASH=h{digest}", "-o", tmp,
-           *_sources()]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+            for src in _sources()]
+    compile_cmds = [[nvcc, *NVCC_FLAGS, f"-DWAVEDM_SRC_HASH=h{digest}", "-c",
+                     src, "-o", obj] for src, obj in zip(_sources(), objs)]
     t0 = time.perf_counter()
+    deadline = t0 + BUILD_TIMEOUT_S
     try:
-        subprocess.run(cmd, check=True, timeout=BUILD_TIMEOUT_S,
-                       capture_output=True, text=True)
+        errs = _run_all(compile_cmds, deadline)
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]], deadline)
         os.replace(tmp, LIB_PATH)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s") from e
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.remove(path)
     last_build_seconds = time.perf_counter() - t0
+    last_ptxas = "".join(errs)
     return LIB_PATH
 
 

@@ -2,7 +2,9 @@
 
 A CPU tensor runs :func:`group_norm_plain`; a CUDA tensor launches the
 kernel or raises.  Launches are counted in ``launches`` per instantiation
-("f32", "f32_swish", "bf16", "bf16_swish").
+("f32", "f32_swish", "bf16", "bf16_swish").  The kernel has no gradient, so
+:func:`group_norm` refuses to run under autograd on every device, as the
+JAX package's ``fused_group_norm`` refuses ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,14 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6,
                swish: bool = False) -> torch.Tensor:
     """GroupNorm(num_groups, eps) + affine (+ swish) over NCHW ``x``;
-    weight/bias: (C,) float32.  Returns x's dtype."""
+    weight/bias: (C,) float32.  Returns x's dtype.  Raises under autograd
+    (grad mode on and an input that requires grad)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        raise RuntimeError(
+            "group_norm: the fused GroupNorm kernel has no gradient; "
+            "train with parallel.fused_groupnorm: false (or "
+            "fused_resblock: true)")
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, num_groups, eps, swish)
     lib = _build.library()

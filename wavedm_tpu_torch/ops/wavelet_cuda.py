@@ -3,6 +3,8 @@
 A CPU tensor runs the plain version (:func:`wavelet_dec_plain` /
 :func:`wavelet_rec_plain`, reshape + basis matmul); a CUDA tensor launches
 the kernel or raises.  Each wrapper counts its launches in ``launches``.
+The kernels have no gradient: on a CUDA tensor under autograd the wrappers
+raise; the plain CPU path stays differentiable, as JAX's ``wavelet_dec`` is.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ launches = {"wavelet_dec": 0, "wavelet_rec": 0}
 
 
 def _check(t: torch.Tensor, what: str) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(f"{what}: the CUDA kernel has no gradient; call "
+                           "it on a tensor that does not require grad")
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.float32:
