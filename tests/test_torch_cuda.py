@@ -139,6 +139,62 @@ def test_fused_kernel_matches_plain(cuda, shape, dtype):
     assert fr.launches[key] == before + 1
 
 
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32x_bf16compute", "bf16x_f32compute"])
+@pytest.mark.parametrize("shape", [FUSED_SHAPES[0], FUSED_SHAPES[9],
+                                   FUSED_SHAPES[16], (5, 64, 96)],
+                         ids=lambda s: f"{s[0]}x{s[0]}_{s[1]}to{s[2]}")
+def test_fused_kernel_mixed_dtypes_match_plain(cuda, shape, dtypes):
+    """x in one dtype, the compute dtype the other; the output takes x's
+    dtype.  Held to the compute dtype's tolerance of the output scale
+    (f32 1e-4, bf16 2**-7, as above); a bfloat16 output may besides round
+    a float32 sum to the other side of a bf16 boundary: one bf16 ulp, at
+    most 2**-7 of the element."""
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    x_dtype, compute = dtypes
+    h, cin, cout = shape
+    key = "fused_gn_swish_conv_" + ("f32" if compute == torch.float32
+                                    else "bf16")
+    args = _fused_inputs(cuda, 2, cin, cout, h, h + 3 * (h < 8), x_dtype)
+    before = fr.launches[key]
+    out = fr.fused_gn_swish_conv(*args, compute)
+    ref = fr.fused_gn_swish_conv_plain(*args, compute)
+    torch.cuda.synchronize()
+    assert out.dtype == x_dtype and out.shape == ref.shape
+    tol = 1e-4 if compute == torch.float32 else 2.0 ** -7
+    ulp = 2.0 ** -7 if x_dtype == torch.bfloat16 else 0.0
+    excess = (out.float() - ref.float()).abs() - ulp * ref.float().abs()
+    assert float(excess.max()) <= tol * float(ref.float().abs().max())
+    assert fr.launches[key] == before + 1
+
+
+def test_fused_kernel_sees_in_place_weight_updates(cuda):
+    """Serving caches the kernel's weight layout per frozen weight; an
+    in-place copy_ or load_state_dict must reach the next call."""
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    x, sg, bg, w, b = _fused_inputs(cuda, 2, 64, 96, 8, 8, torch.float32)
+    conv = torch.nn.Conv2d(64, 96, 3, padding=1).to(cuda).requires_grad_(False)
+    conv.weight.copy_(w)
+    first = fr.fused_gn_swish_conv(x, sg, bg, conv.weight, b, torch.float32)
+    assert fr.kernel_weight(conv.weight, torch.float32) is \
+        fr.kernel_weight(conv.weight, torch.float32)
+    for update in (lambda w2: conv.weight.copy_(w2),
+                   lambda w2: conv.load_state_dict({"weight": w2,
+                                                    "bias": conv.bias})):
+        w2 = torch.randn_like(w) * 0.05
+        update(w2)
+        out = fr.fused_gn_swish_conv(x, sg, bg, conv.weight, b,
+                                     torch.float32)
+        ref = fr.fused_gn_swish_conv_plain(x, sg, bg, w2, b, torch.float32)
+        torch.cuda.synchronize()
+        assert float((out - first).abs().max()) > 0.1
+        err = float((out - ref).abs().max())
+        assert err <= 1e-4 * float(ref.abs().max()), err
+
+
 @pytest.mark.parametrize("shape", [(16, 256, 512), (8, 64, 96)])
 def test_fused_gradients_match_autograd_of_the_composition(cuda, shape):
     from wavedm_tpu_torch.ops import fused_resblock as fr

@@ -146,3 +146,79 @@ def test_channels_not_a_multiple_of_32_raise(cin):
         fused_gn_swish_conv(x, torch.ones(cin), torch.zeros(cin),
                             torch.zeros(32, cin, 3, 3), torch.zeros(32),
                             torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [3, 96, 128, 256])
+def test_weight_layout_is_the_permuted_weight_padded(cout, dtype):
+    """The kernel's weight operand, in the compute dtype, zero channels up
+    to a multiple of 128: float32 rows tap*Cin + ci of
+    w.permute(2, 3, 1, 0); bfloat16 blocked by (128-channel tile, 32-channel
+    chunk, tap, k8 block, n8 block, n % 8, k % 8)."""
+    from wavedm_tpu_torch.ops.fused_resblock import weight_layout
+
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (cout, 64, 3, 3)).astype(np.float32))
+    wk = weight_layout(w, dtype)
+    cout_pad = -(-cout // 128) * 128
+    assert wk.dtype == dtype and wk.is_contiguous()
+    if dtype == torch.float32:
+        assert wk.shape == (9 * 64, cout_pad)
+        assert torch.equal(wk[:, :cout],
+                           w.permute(2, 3, 1, 0).reshape(9 * 64, cout))
+        assert not wk[:, cout:].any()
+    else:
+        assert wk.shape == (cout_pad // 128, 2, 9, 4, 16, 8, 8)
+        # element by element: [nt, c, tap, q, j, r, e] =
+        # w[128 nt + 8 j + r, 32 c + 8 q + e, tap // 3, tap % 3]
+        nt, c, tap, q, j, r, e = np.indices(wk.shape).reshape(7, -1)
+        n, ci = 128 * nt + 8 * j + r, 32 * c + 8 * q + e
+        wpad = torch.cat([w, torch.zeros(cout_pad - cout, 64, 3, 3)]).to(dtype)
+        assert torch.equal(wk.reshape(-1),
+                           wpad[n, ci, tap // 3, tap % 3])
+
+
+def test_kernel_weight_cache_follows_the_weight():
+    """A frozen weight's layout is built once; copy_, load_state_dict and a
+    new dtype rebuild it; a weight that requires grad is never cached; the
+    entry dies with the weight."""
+    import gc
+
+    from wavedm_tpu_torch.ops import fused_resblock as ops
+
+    conv = torch.nn.Conv2d(32, 48, 3).requires_grad_(False)
+    w = conv.weight
+    first = ops.kernel_weight(w, torch.float32)
+    assert ops.kernel_weight(w, torch.float32) is first
+    assert ops.kernel_weight(w, torch.bfloat16).dtype == torch.bfloat16
+    for update in (lambda v: w.copy_(v),
+                   lambda v: conv.load_state_dict({"weight": v,
+                                                   "bias": conv.bias})):
+        new = torch.randn(48, 32, 3, 3)
+        with torch.no_grad():
+            update(new)
+        wk = ops.kernel_weight(w, torch.float32)
+        assert torch.equal(wk, ops.weight_layout(new, torch.float32))
+    n_cached = len(ops._layouts)
+    trained = torch.nn.Parameter(torch.randn(48, 32, 3, 3))
+    assert ops.kernel_weight(trained, torch.float32) is not \
+        ops.kernel_weight(trained, torch.float32)
+    assert len(ops._layouts) == n_cached
+    del conv, w
+    gc.collect()
+    assert len(ops._layouts) == n_cached - 1
+
+
+@pytest.mark.parametrize("site", [
+    # (N, H, Cin, Cout) -> splits on a 132-SM card
+    ((90, 64, 128, 128), 1), ((90, 32, 256, 256), 1),
+    ((90, 16, 512, 512), 1), ((90, 8, 1536, 768), 2), ((90, 8, 768, 768), 1),
+    ((16, 32, 512, 256), 1), ((16, 16, 1280, 512), 1),
+    ((16, 8, 1536, 768), 5), ((16, 8, 512, 768), 5), ((1, 8, 64, 32), 1),
+    ((16, 8, 64, 768), 2)], ids=str)
+def test_split_k_evens_out_the_last_round_of_tiles(site):
+    from wavedm_tpu_torch.ops.fused_resblock import split_k
+
+    (n, h, cin, cout), want = site
+    assert split_k(n * h * h, cout, cin, 132) == want
+

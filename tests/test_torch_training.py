@@ -411,6 +411,42 @@ def test_resume_refuses_another_pred_type(tmp_path):
         other.resume(path)
 
 
+def test_resumed_run_already_at_its_stop_takes_no_step(tmp_path):
+    """The port's fit returns before any step when a resumed run is already
+    at its stop (the JAX trainer takes one more step first)."""
+    _, cfg = _configs(RAW)
+    quiet = dict(device="cpu", log_fn=lambda s: None)
+    trainer = DiffusionTrainer(cfg, **quiet)
+    trainer.fit(cli.smoke_batches(cfg), max_steps=2)
+    path = trainer.save(str(tmp_path / "at_stop"))
+    resumed = DiffusionTrainer(cfg, **quiet)
+    resumed.resume(path)
+    assert resumed.fit(cli.smoke_batches(cfg), max_steps=2) == []
+    assert resumed.state.step == 2
+    _same_state(trainer.state, resumed.state)
+
+
+def test_serving_loader_refuses_another_pred_type(tmp_path):
+    """build_unet reads the pred_type a port checkpoint was trained with
+    and raises on a mismatch; a reference file without the key is eps."""
+    from wavedm_tpu_torch.inference.loader import build_unet
+
+    _, cfg = _configs(RAW)
+    _, cfg_v = _configs(_raw(training={"pred_type": "v"}))
+    trainer = DiffusionTrainer(cfg_v, device="cpu", log_fn=lambda s: None)
+    v_path = trainer.save(str(tmp_path / "v"))
+    assert build_unet(cfg_v, v_path, "cpu").training is False
+    with pytest.raises(ValueError, match="pred_type='v'"):
+        build_unet(cfg, v_path, "cpu")
+    with pytest.raises(ValueError, match="pred_type='v'"):
+        build_unet(cfg, v_path, "cpu", ema=True)
+    ref_path = str(tmp_path / "reference.pth.tar")
+    torch.save({"state_dict": trainer.model.state_dict()}, ref_path)
+    build_unet(cfg, ref_path, "cpu")
+    with pytest.raises(ValueError, match="pred_type='eps'"):
+        build_unet(cfg_v, ref_path, "cpu")
+
+
 def test_cli_smoke(tmp_path, capsys):
     raw = _raw(parallel={"fused_resblock": True})
     path = tmp_path / "tiny.yaml"

@@ -7,13 +7,16 @@ random weights drawn from ``cfg.training.seed`` by a ``torch.Generator``
 (smoke runs and tests).  Models are built on the meta device first, so no
 memory is touched before the weights land on the target device.
 ``build_unet(..., train=True)`` gives the trainable UNet: float32
-parameters cast at use, train mode, gradients on.
+parameters cast at use, train mode, gradients on.  A UNet checkpoint path
+must have been trained with the config's ``training.pred_type`` (a
+reference file without the key counts as ``eps``): serving v-trained
+weights as eps, or the reverse, raises instead of restoring wrong images.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Union
+from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -63,15 +66,16 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def _materialize(model: nn.Module, weights: Weights, device: torch.device,
-                 seed: int, ema: bool = False,
-                 train: bool = False) -> nn.Module:
+                 seed: int, ema: bool = False, train: bool = False,
+                 pred_type: Optional[str] = None) -> nn.Module:
     model = model.to_empty(device=device)
     if weights is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         init_random_(model, gen)
     else:
         if isinstance(weights, str):
-            weights = load_torch_checkpoint(weights, ema=ema)
+            weights = load_torch_checkpoint(weights, ema=ema,
+                                            pred_type=pred_type)
         model.load_state_dict(weights)
     return model.train(train).requires_grad_(train)
 
@@ -81,7 +85,8 @@ def build_unet(cfg: Config, weights: Weights = None, device=None,
     device = resolve_device(device)
     with torch.device("meta"):
         unet = DiffusionUNet.from_config(cfg, keep_f32_params=train)
-    return _materialize(unet, weights, device, cfg.training.seed, ema, train)
+    return _materialize(unet, weights, device, cfg.training.seed, ema, train,
+                        cfg.training.pred_type)
 
 
 def build_hfrm(cfg: Config, weights: Weights = None, device=None) -> HFRM:

@@ -39,8 +39,8 @@ ENTRIES = {
     "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _P),
     "group_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "group_norm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "fused_gn_swish_conv_f32": (_P,) * 7 + (_I,) * 6 + (_F, _P),
-    "fused_gn_swish_conv_bf16": (_P,) * 7 + (_I,) * 6 + (_F, _P),
+    "fused_gn_swish_conv_f32": (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    "fused_gn_swish_conv_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),
 }
 
 _lock = threading.Lock()

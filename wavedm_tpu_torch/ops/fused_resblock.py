@@ -7,10 +7,16 @@ the CUDA kernel for a CUDA tensor (or raises) and runs
 JAX package's (``_bwd``): it recomputes through the plain composition
 (two-pass variance, ``y`` rounded to the compute dtype, the conv in the
 compute dtype) under autograd, on either device.  Only the inputs are
-saved.  Launches are counted in ``launches`` per dtype.
+saved.  Launches are counted in ``launches`` per compute dtype; x may be
+float32 or bfloat16 whatever the compute dtype, and the output takes x's
+dtype.  The kernel's weight layout (:func:`weight_layout`) is cached per
+frozen weight tensor (:func:`kernel_weight`).
 """
 
 from __future__ import annotations
+
+import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -19,15 +25,18 @@ from wavedm_tpu_torch.ops import _build
 from wavedm_tpu_torch.ops.groupnorm_cuda import group_norm_plain
 
 __all__ = ["fused_gn_swish_conv", "fused_gn_swish_conv_plain",
-           "fused_gn_swish_conv_reference", "launches", "GROUPS", "EPS"]
+           "fused_gn_swish_conv_reference", "weight_layout", "kernel_weight",
+           "split_k", "launches", "GROUPS", "EPS"]
 
 GROUPS = 32
 EPS = 1e-6
-_BN = 128     # the kernel's output-channel tile; weights are padded to it
+_BM = 128     # the kernel's output-pixel tile
+_BN = 128     # its output-channel tile; weights are padded to it
+_CK = 32      # its input-channel chunk
 _ENTRY = {torch.float32: "fused_gn_swish_conv_f32",
           torch.bfloat16: "fused_gn_swish_conv_bf16"}
 
-# kernel launches since the last reset, by instantiation
+# kernel launches since the last reset, by compute dtype
 launches = dict.fromkeys(_ENTRY.values(), 0)
 
 
@@ -60,21 +69,95 @@ def fused_gn_swish_conv_reference(x, weight_gn, bias_gn, w, b,
     return (out.float() + b.float()[:, None, None]).to(x.dtype)
 
 
+def weight_layout(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's weight operand from (Cout, Cin, 3, 3), in ``dtype``,
+    output channels zero-padded to a multiple of the kernel's 128-channel
+    tile (Cout_pad), tap = 3*dy + dx:
+
+    - bfloat16: blocked as the tensor cores read it, so that the weights of
+      one (128-channel tile, 32-channel chunk) are one contiguous run:
+      (Cout_pad/128, Cin/32, 9, 4, 16, 8, 8) indexed (n tile, chunk, tap,
+      k8 block, n8 block, n % 8, k % 8), element
+      ``w[128*nt + 8*j + r, 32*c + 8*q + e, dy, dx]``;
+    - float32: (9*Cin, Cout_pad), row tap*Cin + ci, ``w.permute(2, 3, 1, 0)``.
+    """
+    cout, cin = w.shape[:2]
+    pad = -(-cout // _BN) * _BN - cout
+    w = w.detach().to(dtype)
+    if dtype == torch.bfloat16:
+        wp = F.pad(w, (0, 0, 0, 0, 0, 0, 0, pad)).reshape(
+            -1, 16, 8, cin // _CK, 4, 8, 9)        # nt, j, r, c, q, e, tap
+        return wp.permute(0, 3, 6, 4, 1, 2, 5).contiguous()
+    wk = w.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+    return F.pad(wk, (0, pad)).contiguous()
+
+
+# id(weight) -> (weakref to it, (data_ptr, version, dtype), its layout)
+_layouts = {}
+
+
+def _forget(key, ref):
+    if _layouts.get(key, (None,))[0] is ref:
+        del _layouts[key]
+
+
+def kernel_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`weight_layout`, cached per weight tensor while the weight
+    does not require grad (serving: frozen weights).  The entry is keyed by
+    the tensor's storage address and version counter, so an in-place
+    ``copy_`` or ``load_state_dict`` rebuilds it; it dies with the tensor.
+    A weight that requires grad (training) is laid out anew each call."""
+    if w.requires_grad:
+        return weight_layout(w, dtype)
+    key = (w.data_ptr(), w._version, dtype)
+    hit = _layouts.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == key:
+        return hit[2]
+    wk = weight_layout(w, dtype)
+    _layouts[id(w)] = (weakref.ref(w, functools.partial(_forget, id(w))),
+                       key, wk)
+    return wk
+
+
+def split_k(m: int, cout: int, cin: int, sm_count: int) -> int:
+    """How many tiles share the Cin chunks of one (128-pixel x 128-channel)
+    output tile.  The kernel runs one persistent block an SM over the
+    tiles.  When there are fewer tiles than SMs, or their last round leaves
+    SMs idle, splitting K evens it out, at the cost of a round trip of
+    float32 partials.  Takes the fewest splits (at most 8, at least one
+    32-channel chunk each) within 10 points of the best share of busy SM
+    rounds; once the tiles fill the SMs, each split keeps at least 13
+    chunks (on the H100 the 8x8 sites at N = 90 gained from splitting only
+    at Cin >= 1280)."""
+    tiles = -(-m // _BM) * -(-cout // _BN)
+    chunks = cin // _CK
+    most = min(chunks, 8) if tiles < sm_count else max(1, chunks // 13)
+    share = {s: tiles * s / (-(-tiles * s // sm_count) * sm_count)
+             for s in range(1, min(most, 8) + 1)}
+    best = max(share.values())
+    return min(s for s, v in share.items() if v >= best - 0.1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _launch(x, weight_gn, bias_gn, w, b, compute_dtype):
     lib = _build.library()
     if not x.is_cuda:
         raise ValueError(
             f"fused_gn_swish_conv: expected a CUDA tensor, got {x.device}")
-    if x.dtype not in _ENTRY or compute_dtype != x.dtype:
+    if x.dtype not in _ENTRY or compute_dtype not in _ENTRY:
         raise ValueError(
             "fused_gn_swish_conv: the kernel takes float32 or bfloat16 x "
-            f"with the compute dtype equal to it (got {x.dtype}, "
-            f"{compute_dtype})")
+            f"and compute dtype (got {x.dtype}, {compute_dtype})")
     if not x.is_contiguous():
         raise ValueError("fused_gn_swish_conv: expected a contiguous NCHW x")
     n, cin, h, wd = x.shape
     cout = w.shape[0]
-    if n * h * wd >= 2 ** 31:
+    m = n * h * wd
+    if m + 2 * wd + 2 * _BM >= 2 ** 31:
         raise ValueError("fused_gn_swish_conv: tensor too large for the kernel")
     for t, name, size in ((weight_gn, "GroupNorm scale", cin),
                           (bias_gn, "GroupNorm bias", cin),
@@ -84,23 +167,24 @@ def _launch(x, weight_gn, bias_gn, w, b, compute_dtype):
                              f"x on {x.device}")
         if size is not None and t.shape != (size,):
             raise ValueError(f"fused_gn_swish_conv: {name} must be ({size},)")
-    # weights as (9*Cin, Cout_pad) in the compute dtype, row tap*Cin + ci
+    wk = kernel_weight(w, compute_dtype)
     cout_pad = -(-cout // _BN) * _BN
-    wk = (torch.zeros if cout_pad != cout else torch.empty)(
-        (9 * cin, cout_pad), dtype=x.dtype, device=x.device)
-    wk[:, :cout] = w.permute(2, 3, 1, 0).reshape(9 * cin, cout)
     gamma = weight_gn.float().contiguous()
     beta = bias_gn.float().contiguous()
     bias = b.float().contiguous()
+    splits = split_k(m, cout, cin, _sm_count(x.device.index))
     ab = torch.empty(2 * n * cin, dtype=torch.float32, device=x.device)
+    ws = (torch.empty(splits * cout_pad * m, dtype=torch.float32,
+                      device=x.device) if splits > 1 else None)
     out = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
-    entry = _ENTRY[x.dtype]
+    entry = _ENTRY[compute_dtype]
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wk.data_ptr(),
-            bias.data_ptr(), ab.data_ptr(), out.data_ptr(), n, cin, h, wd,
-            cout, cout_pad, EPS,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            bias.data_ptr(), ab.data_ptr(),
+            None if ws is None else ws.data_ptr(), out.data_ptr(), n, cin, h,
+            wd, cout, cout_pad, splits, int(x.dtype == torch.bfloat16),
+            EPS, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "fused_gn_swish_conv")
     launches[entry] += 1
     return out

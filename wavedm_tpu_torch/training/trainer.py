@@ -90,6 +90,11 @@ class DiffusionTrainer:
         """Run epochs until ``training.n_epochs``, ``training.n_iters``
         global steps, or ``max_steps``.
 
+        A resumed run whose step already reaches that stop takes no step
+        and returns an empty history.  (The JAX trainer takes one more
+        step first and so overshoots ``n_iters`` by one; the port does
+        not.)
+
         batch_iter_fn(epoch) -> iterable of (B, P, P, 6) float32 batches in
         [0, 1].  metrics_path: optional JSONL file that receives each
         logged step's metrics."""

@@ -12,7 +12,7 @@ arrays or anything ``np.asarray`` accepts.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -124,13 +124,23 @@ def hfrm_state_dict_from_flax(params: Mapping, enc_blk_nums, mid_blk_num: int,
     return sd
 
 
-def load_torch_checkpoint(path: str, ema: bool = False) -> Dict[str, torch.Tensor]:
+def load_torch_checkpoint(path: str, ema: bool = False,
+                          pred_type: Optional[str] = None
+                          ) -> Dict[str, torch.Tensor]:
     """A reference ``.pth``/``.pth.tar`` file -> its state_dict on the CPU.
 
     ``ema=True`` returns the EMA shadow (``obj['ema_helper']``, same keys
     as ``state_dict``: the reference registers its EMAHelper on the
-    unwrapped module)."""
+    unwrapped module).  ``pred_type``: raise unless the file was trained
+    with it; the port's checkpoints record it, and a file without the key
+    (the reference's) counts as ``"eps"``."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
+    if pred_type is not None:
+        saved = obj.get("pred_type", "eps") if isinstance(obj, dict) else "eps"
+        if saved != pred_type:
+            raise ValueError(
+                f"checkpoint {path} was trained with pred_type={saved!r}, "
+                f"the config says {pred_type!r}")
     if ema:
         if not (isinstance(obj, dict) and "ema_helper" in obj):
             raise KeyError(f"checkpoint {path} has no 'ema_helper' entry")
