@@ -41,6 +41,17 @@ Phases, each printing one JSON line with its elapsed seconds:
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 It needs one CUDA card and the repository around it.
+
+A kernel's ``ms`` is the wrapper's time, CUDA events around back-to-back
+calls: what a caller pays when the card is not queued ahead, the host's
+Python included.  ``device_ms`` is the card's own time: the same calls
+captured in a CUDA graph and replayed, on inputs rotated past the L2 cache.
+
+    python3 chip_smoke.py --tree DIR --phases kernels,restore
+
+runs only those phases, on the package of another checkout DIR (to time
+two commits in turns in one run); ``--phases sweep`` times the GroupNorm
+kernel under each launch plan.
 """
 
 import json
@@ -52,6 +63,7 @@ import sys
 import time
 
 MEM_BW = 3.35e12           # H100 SXM device memory, bytes/s
+L2_BYTES = 50 * 2 ** 20    # its L2 cache
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
@@ -88,6 +100,55 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, x, iters=20, reps=3):
+    """Device time of ``fn(x)`` per call: ``iters`` calls captured once in
+    a CUDA graph, its replay timed with CUDA events.  The wrapper's Python
+    (allocation, checks, the ctypes call) runs only at capture, so this is
+    what the card spends, where ``time_ms`` may time the host.  The calls
+    cycle through copies of x that together exceed three times the L2
+    cache, so each call reads x from device memory, as the bound counts."""
+    import torch
+
+    copies = min(iters, -(-3 * L2_BYTES // (x.numel() * x.element_size())))
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    fn(x)                   # outside the graph: builds, attributes, caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(xs[i % copies])
+    # replays for 20 ms first: on the H100 the first replays after a stretch
+    # of untimed work read up to 12% slow
+    t = time.perf_counter()
+    while time.perf_counter() - t < 0.02:
+        graph.replay()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph, xs
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def host_ms(fn, iters=200):
+    """Host time per call: the wrapper's Python and the launch, on the
+    host clock over back-to-back calls that the card runs behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / iters
 
 
 def wall_ms(fn, iters=20):
@@ -159,6 +220,15 @@ def gn_sites(cfg, n_patches):
     return sites
 
 
+def gn_plan(gn, n, c, hw, dtype):
+    """The GroupNorm kernel's launch plan as printed; None for a package
+    that has none (an earlier commit's, run with ``--tree``)."""
+    if not hasattr(gn, "group_norm_plan"):
+        return None
+    plan = gn.group_norm_plan(n, c, hw, 32, dtype)
+    return dict(plan._asdict(), kind=plan.kind)
+
+
 def check_kernels(cfg, n_patches):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -192,6 +262,8 @@ def check_kernels(cfg, n_patches):
         replaces="wavedm_tpu/ops/wavelet_pallas.py:44",
         max_abs_err=dec_err, tol=tol,
         ms=time_ms(lambda: wv.wavelet_dec_cuda(x)),
+        device_ms=device_ms(wv.wavelet_dec_cuda, x),
+        host_ms=host_ms(lambda: wv.wavelet_dec_cuda(x)),
         plain_ms=time_ms(lambda: wv.wavelet_dec_plain(x)),
         bound_ms=bound_ms(x, z),
         library_ms=time_ms(lambda: F.conv2d(x, bank, stride=4, groups=3)))
@@ -200,6 +272,8 @@ def check_kernels(cfg, n_patches):
         replaces="wavedm_tpu/ops/wavelet_pallas.py:60",
         max_abs_err=rec_err, tol=tol, roundtrip_err=rt_err,
         ms=time_ms(lambda: wv.wavelet_rec_cuda(z)),
+        device_ms=device_ms(wv.wavelet_rec_cuda, z),
+        host_ms=host_ms(lambda: wv.wavelet_rec_cuda(z)),
         plain_ms=time_ms(lambda: wv.wavelet_rec_plain(z)),
         bound_ms=bound_ms(z, back),
         library_ms=time_ms(
@@ -221,8 +295,8 @@ def check_kernels(cfg, n_patches):
             name = f"{tag}_swish" if swish else tag
             row = dict(source="wavedm_tpu_torch/csrc/groupnorm.cu",
                        replaces="wavedm_tpu/ops/groupnorm_pallas.py:27",
-                       max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                       library_ms=0.0)
+                       max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+                       bound_ms=0.0, library_ms=0.0)
             for c, h, w in shapes:
                 count = sites.get((c, h, w, swish), 0)
                 xs = torch.randn(n_patches, c, h, w, device=dev,
@@ -249,16 +323,21 @@ def check_kernels(cfg, n_patches):
 
                 k_ms = time_ms(lambda: gn.group_norm(xs, wt, bs, 32, 1e-6,
                                                      swish))
+                d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
+                                                         swish), xs)
                 p_ms = time_ms(lambda: gn.group_norm_plain(xs, wt, bs, 32,
                                                            1e-6, swish))
                 l_ms = time_ms(lib)
                 b_ms = bound_ms(xs, y)
                 emit("kernels", kernel=f"group_norm_{name}",
                      shape=[n_patches, c, h, w], count_per_forward=count,
-                     max_abs_err=float(diff.max()), ms=k_ms, plain_ms=p_ms,
-                     library_ms=l_ms, bound_ms=b_ms)
-                for key, val in (("ms", k_ms), ("plain_ms", p_ms),
-                                 ("library_ms", l_ms), ("bound_ms", b_ms)):
+                     max_abs_err=float(diff.max()), ms=k_ms, device_ms=d_ms,
+                     plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                     share_of_bound=b_ms / d_ms,
+                     plan=gn_plan(gn, n_patches, c, h * w, dtype))
+                for key, val in (("ms", k_ms), ("device_ms", d_ms),
+                                 ("plain_ms", p_ms), ("library_ms", l_ms),
+                                 ("bound_ms", b_ms)):
                     row[key] += count * val      # per UNet forward
             rows[f"group_norm_{name}"] = row
     return rows
@@ -349,8 +428,8 @@ def check_fused_kernels(cfg):
         # and at N = 16 the 8x8 sites split again
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for n, key in ((90, ""), (16, "_n16")):
-            tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                                 "bytes_ms", "ops_ms"), 0.0)
+            tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bytes_ms", "ops_ms"), 0.0)
             iters = 3 if (tag, n) == ("f32", 90) else 10
             plans = {}
             for (cin, h, w, cout), count in sorted(sites.items()):
@@ -374,6 +453,8 @@ def check_fused_kernels(cfg):
 
                 k_ms = time_ms(lambda: fr.fused_gn_swish_conv(
                     x, sg, bg, wk, b, dtype), iters, 1)
+                d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
+                    t, sg, bg, wk, b, dtype), x, iters, 1)
                 p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
                     x, sg, bg, wk, b, dtype), iters, 1)
                 l_ms = time_ms(lib, iters, 1)
@@ -382,12 +463,12 @@ def check_fused_kernels(cfg):
                 o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
                 emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
                      shape=[n, cin, h, w, cout], count_per_forward=count,
-                     ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                     ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
                      bytes_ms=b_ms, ops_ms=o_ms,
                      tflops=2.0 * n * h * w * 9 * cin * cout / k_ms / 1e9)
-                for name, val in (("ms", k_ms), ("plain_ms", p_ms),
-                                  ("library_ms", l_ms), ("bytes_ms", b_ms),
-                                  ("ops_ms", o_ms)):
+                for name, val in (("ms", k_ms), ("device_ms", d_ms),
+                                  ("plain_ms", p_ms), ("library_ms", l_ms),
+                                  ("bytes_ms", b_ms), ("ops_ms", o_ms)):
                     tot[name] += count * val          # per UNet forward
             if n == 90:
                 assert all(s == 1 for (_, h, _), s in plans.items()
@@ -705,9 +786,89 @@ def train_profile(name, cfg, n_crops, hfrm_sd):
     return counts
 
 
-def main():
+def gn_sweep(cfg, n_patches):
+    """The GroupNorm kernel under each launch plan at every flagship site
+    shape, swish on (the chosen plan also with swish off): the share of its
+    bound each reaches.  group_norm_plan's constants come from this."""
     import torch
 
+    from wavedm_tpu_torch.ops import groupnorm_cuda as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    chosen = gn.group_norm_plan
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, h, w in sorted({key[:3] for key in gn_sites(cfg, n_patches)}):
+            x = torch.randn(n_patches, c, h, w, device=dev,
+                            generator=gen).to(dtype)
+            wt = torch.randn(c, device=dev, generator=gen)
+            bs = torch.randn(c, device=dev, generator=gen)
+            length, elem = c // 32 * h * w, x.element_size()
+            plans = [(k, 1, t) for k in (2, 4, 8) for t in (128, 256)]
+            plans += [(1, m, t) for m in (1, 2) for t in (128, 256)]
+            shares = {}
+            for k, m, t in plans:
+                if length % k or m * length // k * elem > gn.SMEM_MAX:
+                    continue
+                plan = gn.GroupNormPlan(k, m, length // k, t,
+                                        m * length // k * elem,
+                                        -(-n_patches * 32 // m) * k)
+                gn.group_norm_plan = lambda *args, plan=plan: plan
+                try:
+                    d_ms = device_ms(lambda u: gn.group_norm(
+                        u, wt, bs, 32, 1e-6, True), x)
+                finally:
+                    gn.group_norm_plan = chosen
+                shares[f"k{k}m{m}t{t}"] = bound_ms(x, x) / d_ms
+            best = chosen(n_patches, c, h * w, 32, dtype)
+            off = bound_ms(x, x) / device_ms(lambda u: gn.group_norm(
+                u, wt, bs, 32, 1e-6, False), x)
+            emit("gn_sweep", dtype=str(dtype), shape=[n_patches, c, h, w],
+                 segment_kb=length * elem / 1024,
+                 plan=f"k{best.cluster}m{best.segs_per_cta}t{best.threads}",
+                 share_of_bound=shares, plan_share_swish_off=off)
+
+
+def partial(phases, ref_cfg, prod_cfg):
+    """Only the named phases (``--phases``), for comparing trees in one
+    call: ``kernels`` (the DWT/IWT and GroupNorm kernels against their plain
+    versions, timed), ``restore`` (the production restore through
+    ``fused_groupnorm``: a first run, then five timed runs) and ``sweep``
+    (the GroupNorm kernel under each launch plan, :func:`gn_sweep`)."""
+    if "sweep" in phases:
+        gn_sweep(ref_cfg, N_IMAGES * 45)
+    if "kernels" in phases:
+        for name, row in check_kernels(ref_cfg, N_IMAGES * 45).items():
+            emit("kernels", kernel=name, per="call (wavelet) or UNet "
+                 "forward at N = 90 (GroupNorm)", **row)
+    if "restore" in phases:
+        from wavedm_tpu_torch.inference.loader import build_restorer
+
+        rest = build_restorer(prod_cfg, None, None, device="cuda")
+        images = synthetic_images(SEED)
+        out, _, first_ms = restore_timed(rest, images)
+        check_output(out)
+        runs = [restore_timed(rest, images)[2] / N_IMAGES for _ in range(5)]
+        emit("restore", profile="production", first_ms_per_image=first_ms
+             / N_IMAGES, ms_per_image_runs=runs,
+             ms_per_image=sum(runs) / len(runs))
+    return 0
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", help="import wavedm_tpu_torch from this "
+                    "directory (a checkout of another commit) instead of the "
+                    "script's own")
+    ap.add_argument("--phases", help="comma-separated subset of "
+                    "kernels,restore,sweep to run alone; no final lines")
+    args = ap.parse_args(argv)
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -725,7 +886,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, tf32=False)
+         cuda=torch.version.cuda, tf32=False,
+         package=os.path.dirname(_build.CSRC_DIR))
 
     t = time.perf_counter()
     _build.library()
@@ -737,6 +899,8 @@ def main():
     prod_cfg = production_profile()
     for cfg in (ref_cfg, prod_cfg):
         cfg.parallel.fused_groupnorm = True
+    if args.phases:
+        return partial(set(args.phases.split(",")), ref_cfg, prod_cfg)
     k_per_image = 45
     rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
     rows.update(check_fused_kernels(ref_cfg))
@@ -895,6 +1059,7 @@ def main():
     kernels = [dict(name=key, route="cuda", source=row["source"],
                     replaces=row["replaces"], launches=launches[key],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    device_ms=row["device_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row.get("bound_by", "bytes"),
                     library_ms=row["library_ms"])

@@ -27,7 +27,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape", [(1, 3, 8, 12), (2, 3, 480, 720),
-                                   (3, 5, 36, 20)])
+                                   (3, 5, 36, 20), (2, 3, 16, 36),
+                                   (1, 2, 24, 20)])
 def test_wavelet_kernels_match_plain(cuda, shape):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.rand(shape, device=cuda, generator=g) * 2 - 1
@@ -40,11 +41,38 @@ def test_wavelet_kernels_match_plain(cuda, shape):
     torch.testing.assert_close(back, x, atol=2e-6, rtol=0)
 
 
+# GroupNorm shapes -> the launch plan (cluster blocks a segment, segments a
+# block) in float32 and bfloat16: every branch of group_norm_plan, the
+# flagship's widest site, HW not a multiple of the vector, and the stream
+# kernel for segments too large to hold on chip.
+GN_PLANS = {
+    (4, 384, 64, 64): ((2, 1), (1, 1)),
+    (90, 1536, 8, 8): ((1, 1), (1, 2)),       # 128 threads; bf16 packed
+    (2, 64, 5, 7): ((1, 1), (1, 1)),          # element by element
+    (1, 32, 1, 3): ((1, 1), (1, 1)),
+    (90, 384, 64, 64): ((2, 1), (1, 1)),      # the widest flagship site
+    (2, 128, 64, 64): ((1, 1), (1, 1)),
+    (1, 512, 64, 64): ((4, 1), (2, 1)),
+    (1, 1024, 64, 64): ((8, 1), (4, 1)),
+    (1, 2048, 64, 64): ((8, 1), (8, 1)),
+    (90, 256, 16, 16): ((1, 2), (1, 2)),      # two segments a block
+    (90, 128, 32, 32): ((1, 1), (1, 2)),
+    (2, 64, 16, 16): ((1, 1), (1, 1)),
+    (2, 256, 1, 1): ((1, 1), (1, 1)),         # HW = 1
+    (1, 64, 150, 151): ((2, 1), (1, 1)),      # a cluster, element by element
+    (1, 64, 512, 512): ((0, 1), (8, 1)),      # 0: the stream kernel
+    (1, 128, 512, 512): ((0, 1), (0, 1)),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("swish", [False, True])
-@pytest.mark.parametrize("shape", [(4, 384, 64, 64), (90, 1536, 8, 8),
-                                   (2, 64, 5, 7), (1, 32, 1, 3)])
+@pytest.mark.parametrize("shape", list(GN_PLANS))
 def test_group_norm_kernel_matches_plain(cuda, shape, swish, dtype):
+    plan = groupnorm_cuda.group_norm_plan(shape[0], shape[1],
+                                          shape[2] * shape[3], 32, dtype)
+    assert (plan.cluster, plan.segs_per_cta) == \
+        GN_PLANS[shape][dtype == torch.bfloat16]
     g = torch.Generator(device=cuda).manual_seed(1)
     x = (torch.randn(shape, device=cuda, generator=g) * 3 + 1).to(dtype)
     w = torch.randn(shape[1], device=cuda, generator=g)
@@ -55,6 +83,25 @@ def test_group_norm_kernel_matches_plain(cuda, shape, swish, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(y, ref, atol=2e-5, rtol=2e-5)
     else:   # one bf16 ulp where the float32 value sits on a boundary
+        torch.testing.assert_close(y.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernel_takes_unaligned_tensors(cuda, dtype):
+    """A contiguous view that starts off a 16-byte boundary cannot take
+    vector loads or bulk copies: the kernel runs it element by element."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn(1 + 2 * 64 * 16 * 16, device=cuda, generator=g)
+    x = (flat * 3 + 1).to(dtype)[1:].view(2, 64, 16, 16)
+    assert x.data_ptr() % 16
+    w = torch.randn(64, device=cuda, generator=g)
+    b = torch.randn(64, device=cuda, generator=g)
+    y = groupnorm_cuda.group_norm(x, w, b, 32, 1e-6, True)
+    ref = groupnorm_cuda.group_norm_plain(x, w, b, 32, 1e-6, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=2e-5, rtol=2e-5)
+    else:
         torch.testing.assert_close(y.float(), ref.float(), atol=1e-6,
                                    rtol=2.0 ** -6)
 

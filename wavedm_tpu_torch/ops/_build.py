@@ -11,6 +11,7 @@ PyTorch's headers, which keeps the build at seconds.  ``ptxas -v`` output
 The build runs at first use and again only when the sources change: a hash
 of the sources and flags is compiled into the library as a marker string,
 so the library file is the only thing the build leaves in the tree.
+:func:`launch` calls an entry on a tensor's device and current stream.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -37,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     "wavelet_dec_f32": (_P, _P, _I, _I, _I, _I, _P),
     "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _P),
-    "group_norm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "group_norm_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "group_norm_f32": (_P,) * 4 + (_I,) * 4 + (_F,) + (_I,) * 5 + (_P,),
+    "group_norm_bf16": (_P,) * 4 + (_I,) * 4 + (_F,) + (_I,) * 5 + (_P,),
     "fused_gn_swish_conv_f32": (_P,) * 8 + (_I,) * 8 + (_F, _P),
     "fused_gn_swish_conv_bf16": (_P,) * 8 + (_I,) * 8 + (_F, _P),
 }
@@ -145,6 +148,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed); raises when it
     cannot be built."""
     global _lib
+    if _lib is not None:      # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
@@ -163,3 +168,20 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.wavedm_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, entry: str, device: torch.device, *args) -> None:
+    """Call C entry ``entry`` with ``args`` and the current stream of
+    ``device`` (a CUDA tensor's device), with that device current, and
+    raise on a CUDA error.  The stream is asked for on every call (a
+    caller's ``torch.cuda.stream`` or a graph capture changes it) through
+    the raw handle, which costs less than a ``torch.cuda.Stream``; the
+    device is switched only when it is not the current one."""
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, entry)(*args, stream)
+    check(lib, err, entry)

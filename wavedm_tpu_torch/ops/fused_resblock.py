@@ -178,14 +178,11 @@ def _launch(x, weight_gn, bias_gn, w, b, compute_dtype):
                       device=x.device) if splits > 1 else None)
     out = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
     entry = _ENTRY[compute_dtype]
-    with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wk.data_ptr(),
-            bias.data_ptr(), ab.data_ptr(),
-            None if ws is None else ws.data_ptr(), out.data_ptr(), n, cin, h,
-            wd, cout, cout_pad, splits, int(x.dtype == torch.bfloat16),
-            EPS, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "fused_gn_swish_conv")
+    _build.launch(lib, entry, x.device, x.data_ptr(), gamma.data_ptr(),
+                  beta.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                  ab.data_ptr(), None if ws is None else ws.data_ptr(),
+                  out.data_ptr(), n, cin, h, wd, cout, cout_pad, splits,
+                  int(x.dtype == torch.bfloat16), EPS)
     launches[entry] += 1
     return out
 

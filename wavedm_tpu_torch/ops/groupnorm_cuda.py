@@ -1,7 +1,8 @@
 """Wrapper of the GroupNorm(+swish) CUDA kernel (``csrc/groupnorm.cu``).
 
 A CPU tensor runs :func:`group_norm_plain`; a CUDA tensor launches the
-kernel or raises.  Launches are counted in ``launches`` per instantiation
+kernel or raises.  :func:`group_norm_plan` sizes the launch (how a segment
+is held on chip).  Launches are counted in ``launches`` per instantiation
 ("f32", "f32_swish", "bf16", "bf16_swish").  The kernel has no gradient, so
 :func:`group_norm` refuses to run under autograd on every device, as the
 JAX package's ``fused_group_norm`` refuses ``jax.grad``.
@@ -9,11 +10,15 @@ JAX package's ``fused_group_norm`` refuses ``jax.grad``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from wavedm_tpu_torch.ops import _build
 
-__all__ = ["group_norm", "group_norm_plain", "launches", "VARIANTS"]
+__all__ = ["group_norm", "group_norm_plain", "group_norm_plan",
+           "GroupNormPlan", "launches", "VARIANTS"]
 
 VARIANTS = ("f32", "f32_swish", "bf16", "bf16_swish")
 _ENTRY = {torch.float32: ("group_norm_f32", "f32"),
@@ -21,6 +26,75 @@ _ENTRY = {torch.float32: ("group_norm_f32", "f32"),
 
 # kernel launches since the last reset, by instantiation
 launches = dict.fromkeys(VARIANTS, 0)
+
+THREADS = 256               # the kernel's block ...
+SMALL_THREADS = 128         # ... for segments under SMALL_BYTES
+SMALL_BYTES = 24 * 1024
+PACK_BYTES = 8 * 1024       # segments up to this go two to a block
+MAX_CLUSTER = 8             # portable thread-block cluster size
+SLICE_BYTES = 96 * 1024     # most bytes a block holds: 2 blocks an SM
+SMEM_MAX = 232_448 - 1024   # an H100 block's shared memory, less statics
+SMS = 132                   # an H100's SMs
+
+
+class GroupNormPlan(NamedTuple):
+    """How ``csrc/groupnorm.cu`` runs one call.  ``cluster`` blocks share
+    one (n, g) segment, each holding ``slice`` of its elements in shared
+    memory (``cluster`` 1: the block holds ``segs_per_cta`` whole
+    segments); ``cluster`` 0 is the two-pass stream kernel, one block a
+    segment, for segments too large to hold on chip."""
+    cluster: int
+    segs_per_cta: int
+    slice: int             # elements a block holds of one segment
+    threads: int
+    smem_bytes: int        # dynamic shared memory a block
+    grid: int              # blocks
+
+    @property
+    def kind(self) -> str:
+        return "stream" if self.cluster == 0 else (
+            "cluster" if self.cluster > 1 else "packed" if
+            self.segs_per_cta > 1 else "block")
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def group_norm_plan(n: int, c: int, hw: int, groups: int,
+                    dtype: torch.dtype, aligned: bool = True
+                    ) -> GroupNormPlan:
+    """The launch for x of shape (n, c, hw) in ``dtype`` (float32 or
+    bfloat16).  A segment of L = (c/groups)*hw elements takes the fewest
+    cluster blocks (1, 2, 4, 8) whose slices stay within SLICE_BYTES, a
+    slice a whole number of 16-byte vectors when the vectors fit (hw a
+    multiple of 16/element bytes and ``aligned`` tensors); else 8 blocks
+    if their slices fit SMEM_MAX; else the stream kernel.  A segment under
+    SMALL_BYTES takes a block of SMALL_THREADS, and one of PACK_BYTES or
+    less shares it with the next, as long as that leaves two blocks for
+    each SM.  (``chip_smoke.py --phases sweep`` times every cluster size,
+    pairing and block size at the flagship's sites, N = 90: on the H100
+    these choices came within half a point of the best share of the bound
+    at each of the 34 site shapes.)"""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem
+    unit = vec if aligned and hw % vec == 0 else 1
+    length = (c // groups) * hw
+    segs = n * groups
+    fits = [(k, _ceil(_ceil(length, k), unit) * unit)
+            for k in (1, 2, 4, MAX_CLUSTER)]
+    fits = [(k, sl) for k, sl in fits if k == 1 or (k - 1) * sl < length]
+    k, sl = next(((k, sl) for k, sl in fits if sl * elem <= SLICE_BYTES),
+                 fits[-1])
+    if sl * elem > SMEM_MAX:
+        return GroupNormPlan(0, 1, length, THREADS, 2 * (c // groups) * 4,
+                             segs)
+    small = k == 1 and sl * elem < SMALL_BYTES
+    m = 2 if (small and sl * elem <= PACK_BYTES
+              and _ceil(segs, 2) >= 2 * SMS) else 1
+    return GroupNormPlan(k, m, sl, SMALL_THREADS if small else THREADS,
+                         m * sl * elem, _ceil(segs, m) * k)
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -80,11 +154,11 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                              f"float32 ({c},) tensor on {x.device}")
     entry, tag = _ENTRY[x.dtype]
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            n, c, hw, num_groups, eps, int(swish),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "group_norm")
+    plan = group_norm_plan(n, c, hw, num_groups, x.dtype,
+                           x.data_ptr() % 16 == 0)
+    _build.launch(lib, entry, x.device, x.data_ptr(), weight.data_ptr(),
+                  bias.data_ptr(), y.data_ptr(), n, c, hw, num_groups, eps,
+                  int(swish), plan.cluster, plan.segs_per_cta, plan.slice,
+                  plan.threads)
     launches[tag + ("_swish" if swish else "")] += 1
     return y

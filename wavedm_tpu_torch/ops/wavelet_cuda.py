@@ -33,10 +33,6 @@ def _check(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous NCHW tensor")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def wavelet_dec_cuda(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) float32 -> (B, 16C, H/4, W/4), channel f*C + c."""
     if x.device.type == "cpu":
@@ -47,10 +43,8 @@ def wavelet_dec_cuda(x: torch.Tensor) -> torch.Tensor:
     if h % 4 or w % 4:
         raise ValueError(f"wavelet_dec: spatial dims {(h, w)} not divisible by 4")
     z = torch.empty((b, 16 * c, h // 4, w // 4), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.wavelet_dec_f32(x.data_ptr(), z.data_ptr(), b, c, h, w,
-                                  _stream(x))
-    _build.check(lib, err, "wavelet_dec")
+    _build.launch(lib, "wavelet_dec_f32", x.device, x.data_ptr(),
+                  z.data_ptr(), b, c, h, w)
     launches["wavelet_dec"] += 1
     return z
 
@@ -65,9 +59,7 @@ def wavelet_rec_cuda(z: torch.Tensor) -> torch.Tensor:
     if fc % 16:
         raise ValueError(f"wavelet_rec: channel dim {fc} not divisible by 16")
     x = torch.empty((b, fc // 16, 4 * h, 4 * w), dtype=z.dtype, device=z.device)
-    with torch.cuda.device(z.device):
-        err = lib.wavelet_rec_f32(z.data_ptr(), x.data_ptr(), b, fc // 16,
-                                  4 * h, 4 * w, _stream(z))
-    _build.check(lib, err, "wavelet_rec")
+    _build.launch(lib, "wavelet_rec_f32", z.device, z.data_ptr(),
+                  x.data_ptr(), b, fc // 16, 4 * h, 4 * w)
     launches["wavelet_rec"] += 1
     return x
