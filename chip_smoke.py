@@ -14,8 +14,14 @@ Phases, each printing one JSON line with its elapsed seconds:
                     fused GN->swish->conv3x3 kernel's gradients against
                     autograd through its composition, its mixed-dtype
                     instantiations, and the cost of its weight re-layout
+  kernels (whole)   GroupNorm and the fused kernel at the whole-image
+                    chain's sites (a (2, 96, 120, 184) UNet input: levels
+                    at 120x184, 60x92, 30x46, 15x23) against their plain
+                    versions, device time against bound and library
   small_parity      a small restoration on the card (kernels) against the
-                    same restoration on the CPU (plain versions)
+                    same restoration on the CPU (plain versions), under
+                    DDIM, dpmpp2m, a v-trained UNet, eta 0.5 (injected step
+                    noise), patch micro-batches and the whole-image chain
   restore           the flagship UNet (156,492,675 params) and HFRM
                     (15,941,667) with random weights restore two synthetic
                     720x480 images under the reference profile (25 steps,
@@ -29,6 +35,14 @@ Phases, each printing one JSON line with its elapsed seconds:
                     weights, inputs and noise; then the reference profile
                     (float32, 25 steps) with it, held to the reference
                     restore within 1e-3 (float32 summation order)
+  sampler           the production profile through dpmpp2m against DDIM
+                    (timed in turns), patch micro-batches of 16 against the
+                    unbatched chain, and the whole-image chain (bfloat16,
+                    float32, and through ``fused_resblock``)
+  eval              four synthetic 720x480 pairs written as PNG; the
+                    ``cli/eval_diffusion`` and ``cli/restore`` entry points
+                    run in-process over them; metrics (random weights: not
+                    a quality number), dumps read back
   train_parity      one train step of a small UNet on the card against the
                     same step on the CPU
   train             DiffusionTrainer.fit at flagship width with
@@ -198,15 +212,17 @@ def ptxas_report(text):
     return out
 
 
-def gn_sites(cfg, n_patches):
-    """(C, H, W, swish) -> count over one UNet forward, from a forward on
-    the meta device with hooks on every Normalize."""
+def gn_sites(cfg, n_patches, hw=None):
+    """(C, H, W, swish) -> count over one UNet forward on (H, W) = ``hw``
+    inputs (default: the patch), from a forward on the meta device with
+    hooks on every Normalize."""
     import torch
     from collections import Counter
 
     from wavedm_tpu_torch.models.layers import Normalize
     from wavedm_tpu_torch.models.unet import DiffusionUNet
 
+    hw = hw or (cfg.data.image_size, cfg.data.image_size)
     with torch.device("meta"):
         unet = DiffusionUNet.from_config(cfg, fused_gn=False)
         sites = Counter()
@@ -214,8 +230,7 @@ def gn_sites(cfg, n_patches):
             if isinstance(m, Normalize):
                 m.register_forward_hook(lambda mod, inp, out: sites.update(
                     [tuple(inp[0].shape[1:]) + (mod.swish,)]))
-        unet(torch.empty(n_patches, cfg.model.unet_in_channels,
-                         cfg.data.image_size, cfg.data.image_size),
+        unet(torch.empty(n_patches, cfg.model.unet_in_channels, *hw),
              torch.empty(n_patches))
     return sites
 
@@ -343,10 +358,10 @@ def check_kernels(cfg, n_patches):
     return rows
 
 
-def fused_sites(cfg, n_patches):
+def fused_sites(cfg, n_patches, hw=None):
     """(Cin, H, W, Cout) -> count of GN -> swish -> conv3x3 pairs (both
-    convs of every ResnetBlock) over one UNet forward, from a forward on
-    the meta device."""
+    convs of every ResnetBlock) over one UNet forward on (H, W) = ``hw``
+    inputs (default: the patch), from a forward on the meta device."""
     import torch
     from collections import Counter
 
@@ -364,7 +379,7 @@ def fused_sites(cfg, n_patches):
                         lambda mod, inp, out: sites.update(
                             [tuple(inp[0].shape[1:]) + (out.shape[1],)]))
         unet(torch.empty(n_patches, cfg.model.unet_in_channels,
-                         cfg.data.image_size, cfg.data.image_size),
+                         *(hw or (cfg.data.image_size,) * 2)),
              torch.empty(n_patches))
     return sites
 
@@ -604,40 +619,392 @@ def check_output(out):
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
 
+SMALL_VARIANTS = (("ddim", {}), ("dpmpp2m", {"solver": "dpmpp2m"}),
+                  ("v", {"pred_type": "v"}), ("eta0.5", {"eta": 0.5}),
+                  ("micro_batch3", {"patch_micro_batch": 3}),
+                  ("whole_image", {"whole_image": True}))
+
+
 def small_parity():
     """A small restoration through the kernels on the card against the same
-    restoration through the plain versions on the CPU, float32."""
+    restoration through the plain versions on the CPU, float32, under each
+    chain of the sampler: DDIM, dpmpp2m, a v-trained UNet, eta = 0.5 (both
+    sides given the same step noise), patch micro-batches of 3 and the
+    whole-image chain."""
     import numpy as np
     import torch
 
-    from wavedm_tpu_torch.config import (Config, DataConfig, DiffusionConfig,
-                                         ModelConfig, ParallelConfig,
-                                         SamplingConfig)
+    from wavedm_tpu_torch.config import config_from_dict
     from wavedm_tpu_torch.inference.loader import build_restorer
 
-    cfg = Config()
-    cfg.data = DataConfig(image_size=8, patch_size=32)
-    cfg.model = ModelConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
-                            attn_resolutions=(4,))
-    cfg.diffusion = DiffusionConfig(num_diffusion_timesteps=50)
-    cfg.sampling = SamplingConfig(sampling_timesteps=10, grid_r=4)
-    cfg.hfrm.dim, cfg.hfrm.middle_blk_num = 8, 1
-    cfg.hfrm.enc_blk_nums = cfg.hfrm.dec_blk_nums = (1, 1)
-    cfg.parallel = ParallelConfig(fused_groupnorm=True)
-    cfg.validate()
     images = np.random.default_rng(SEED).random((2, 64, 96, 3),
                                                 dtype=np.float32)
-    noise = torch.randn(2, 3, 16, 24, generator=torch.Generator().manual_seed(0))
-    cpu = build_restorer(cfg, None, None, device="cpu")
-    ref, _ = cpu.restore_image(images, noise=noise)
-    gpu = build_restorer(cfg, cpu.unet.state_dict(), cpu.hfrm.state_dict(),
-                         device="cuda")
-    out, _ = gpu.restore_image(images, noise=noise)
-    err = float(np.abs(out - ref).max())
-    # float32 on both sides, TF32 off: summation order only (the CPU tests
-    # hold the same path against JAX to this bound)
-    assert err <= 1e-4, err
-    emit("small_parity", shape=list(out.shape), max_abs_err=err, tol=1e-4)
+    gen = torch.Generator().manual_seed(0)
+    noise = torch.randn(2, 3, 16, 24, generator=gen)
+    step_noise = torch.randn(10, 2, 3, 16, 24, generator=gen)
+    for name, variant in SMALL_VARIANTS:
+        variant = dict(variant)
+        pred_type = variant.pop("pred_type", "eps")
+        cfg = config_from_dict({
+            "data": {"image_size": 8, "patch_size": 32},
+            "model": {"ch": 32, "ch_mult": [1, 2], "num_res_blocks": 1,
+                      "attn_resolutions": [4]},
+            "diffusion": {"num_diffusion_timesteps": 50},
+            "training": {"pred_type": pred_type},
+            "sampling": {"sampling_timesteps": 10, "grid_r": 4, **variant},
+            "hfrm": {"dim": 8, "middle_blk_num": 1, "enc_blk_nums": [1, 1],
+                     "dec_blk_nums": [1, 1]},
+            "parallel": {"fused_groupnorm": True}})
+        cpu = build_restorer(cfg, None, None, device="cpu")
+        ref, _ = cpu.restore_image(images, noise=noise, step_noise=step_noise)
+        gpu = build_restorer(cfg, cpu.unet.state_dict(),
+                             cpu.hfrm.state_dict(), device="cuda")
+        out, _ = gpu.restore_image(images, noise=noise, step_noise=step_noise)
+        err = float(np.abs(out - ref).max())
+        # float32 on both sides, TF32 off: summation order only (the CPU
+        # tests hold the same paths against JAX to this bound)
+        assert err <= 1e-4, (name, err)
+        emit("small_parity", chain=name, shape=list(out.shape),
+             max_abs_err=err, tol=1e-4)
+
+
+def whole_image_hw(cfg):
+    """The UNet's input size on the whole-image chain: the wavelet image
+    (H/4, W/4) reflect-padded to the UNet's 2**(levels-1)."""
+    div = 2 ** (len(cfg.model.ch_mult) - 1)
+    return tuple(d // 4 + (-(d // 4)) % div for d in (HEIGHT, WIDTH))
+
+
+def check_whole_image_kernels(cfg):
+    """GroupNorm(+swish) and the fused GN -> swish -> conv3x3 kernel at the
+    sites of the whole-image chain over the two 720x480 images (a
+    (2, 96, 120, 184) UNet input, levels at 120x184, 60x92, 30x46 and
+    15x23) against their plain versions, at the tolerances of
+    :func:`check_kernels` and :func:`check_fused_kernels`; device time,
+    library time and bound summed over one forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+    from wavedm_tpu_torch.ops import groupnorm_cuda as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n, hw = N_IMAGES, whole_image_hw(cfg)
+    sites = gn_sites(cfg, n, hw)
+    assert sum(sites.values()) == 51, sites
+    out = {}
+    for dtype, tag, atol, rtol in ((torch.float32, "f32", 2e-5, 2e-5),
+                                   (torch.bfloat16, "bf16", 1e-6, 2.0 ** -6)):
+        tot = dict(max_abs_err=0.0, device_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0)
+        for (c, h, w, swish), count in sorted(sites.items()):
+            x = (torch.randn(n, c, h, w, device=dev, generator=gen) * 3
+                 + 1).to(dtype)
+            wt = torch.randn(c, device=dev, generator=gen)
+            bs = torch.randn(c, device=dev, generator=gen)
+            y = gn.group_norm(x, wt, bs, 32, 1e-6, swish)
+            yp = gn.group_norm_plain(x, wt, bs, 32, 1e-6, swish)
+            torch.cuda.synchronize()
+            diff = (y.float() - yp.float()).abs()
+            excess = float((diff - rtol * yp.float().abs()).max())
+            assert excess <= atol, (tag, c, h, w, swish, excess)
+            wl, bl = wt.to(dtype), bs.to(dtype)
+
+            def lib():
+                o = F.group_norm(x, 32, wl, bl, 1e-6)
+                return F.silu(o) if swish else o
+
+            d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
+                                                     swish), x)
+            l_ms, b_ms = time_ms(lib), bound_ms(x, y)
+            emit("kernels", kernel=f"group_norm_{tag}", sites="whole_image",
+                 shape=[n, c, h, w], swish=swish, count_per_forward=count,
+                 max_abs_err=float(diff.max()), device_ms=d_ms,
+                 library_ms=l_ms, bound_ms=b_ms, share_of_bound=b_ms / d_ms,
+                 plan=gn_plan(gn, n, c, h * w, dtype))
+            tot["max_abs_err"] = max(tot["max_abs_err"], float(diff.max()))
+            for key, val in (("device_ms", d_ms), ("library_ms", l_ms),
+                             ("bound_ms", b_ms)):
+                tot[key] += count * val
+        emit("kernels", kernel=f"group_norm_{tag}", sites="whole_image",
+             per=f"UNet forward on ({n}, 96, {hw[0]}, {hw[1]}), 51 sites",
+             **tot)
+        out[f"group_norm_{tag}"] = tot
+
+    sites = fused_sites(cfg, n, hw)
+    assert sum(sites.values()) == 44, sites
+    for dtype, tag, tol in ((torch.float32, "f32", 1e-4),
+                            (torch.bfloat16, "bf16", 2.0 ** -7)):
+        tot = dict(max_rel_err=0.0, device_ms=0.0, library_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0)
+        iters = 5 if tag == "f32" else 10
+        for (cin, h, w, cout), count in sorted(sites.items()):
+            x, sg, bg, wk, b = _fused_inputs(gen, n, cin, h, w, cout, dtype)
+            y = fr.fused_gn_swish_conv(x, sg, bg, wk, b, dtype)
+            ref = fr.fused_gn_swish_conv_plain(x, sg, bg, wk, b, dtype)
+            torch.cuda.synchronize()
+            rel = float((y.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            assert rel <= tol, (tag, cin, h, w, cout, rel)
+            bd = b.to(dtype)
+
+            def lib():
+                z = F.silu(F.group_norm(x.float(), 32, sg, bg, 1e-6))
+                return F.conv2d(z.to(dtype), wk, bd, padding=1)
+
+            d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
+                t, sg, bg, wk, b, dtype), x, iters, 1)
+            l_ms = time_ms(lib, iters, 1)
+            by_ms = bound_ms(x, sg, bg, wk, b, y)
+            o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
+            emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
+                 sites="whole_image", shape=[n, cin, h, w, cout],
+                 count_per_forward=count, max_rel_err=rel, device_ms=d_ms,
+                 library_ms=l_ms, bytes_ms=by_ms, ops_ms=o_ms,
+                 share_of_bound=max(by_ms, o_ms) / d_ms)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            for key, val in (("device_ms", d_ms), ("library_ms", l_ms),
+                             ("bytes_ms", by_ms), ("ops_ms", o_ms)):
+                tot[key] += count * val
+        tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+        emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
+             sites="whole_image",
+             per=f"UNet forward on ({n}, 96, {hw[0]}, {hw[1]}), 44 sites",
+             **tot)
+        out[f"fused_gn_swish_conv_{tag}"] = tot
+    return out
+
+
+def counted_restore(rest, images, want, name, launches):
+    """A first restore with the launch counts set to 0 just before it,
+    checked against ``want`` and added to ``launches``; returns
+    (output, first ms, the launches it made)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, _, first_ms = restore_timed(rest, images)
+    counts = read_counts()
+    check_output(out)
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, (name, got, want)
+    for key, val in got.items():
+        launches[key] += val
+    return out, first_ms, got
+
+
+def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
+    """The production profile (bfloat16, 10 steps over [0, 300),
+    ``fused_groupnorm``) on the two 720x480 images through the sampler's
+    other chains, the same weights and noise: dpmpp2m against DDIM, timed
+    in turns; patch micro-batches of 16 against the unbatched chain, held
+    to this run's bfloat16-vs-float32 gap; the whole-image chain, in
+    bfloat16 and float32, and through ``fused_resblock`` held to the
+    whole-image chain's own bfloat16-vs-float32 gap."""
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.inference.loader import build_restorer
+
+    def restorer(weights=True, **changes):
+        cfg = production_profile()
+        cfg.parallel.fused_groupnorm = True
+        for key, val in changes.items():
+            section, name = key.split("__")
+            setattr(getattr(cfg, section), name, val)
+        cfg.validate()
+        if weights:
+            return build_restorer(cfg, unet_sd, hfrm_sd, device="cuda")
+        return build_restorer(cfg, None, None, device="cuda")
+
+    def gn_want(steps, chunks, tag="bf16"):
+        return {f"group_norm_{tag}_swish": 45 * steps * chunks,
+                f"group_norm_{tag}": 6 * steps * chunks,
+                "wavelet_dec": 2, "wavelet_rec": 1}
+
+    rests = {"ddim": restorer(),
+             "dpmpp2m": restorer(sampling__solver="dpmpp2m")}
+    steps = len(rests["ddim"].seq)
+    outs, runs = {}, {name: [] for name in rests}
+    for name, rest in rests.items():
+        outs[name], _, _ = counted_restore(rest, images, gn_want(steps, 1),
+                                           name, launches)
+    for name in ("ddim", "dpmpp2m", "dpmpp2m", "ddim", "ddim", "dpmpp2m"):
+        runs[name].append(restore_timed(rests[name], images)[2] / N_IMAGES)
+    del rests
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    emit("sampler", chain="dpmpp2m_vs_ddim", steps=steps,
+         ms_per_image=ms, ms_per_image_runs=runs,
+         dpmpp2m_over_ddim=ms["dpmpp2m"] / ms["ddim"],
+         max_abs_diff=float((outs["dpmpp2m"] - outs["ddim"]).abs().max()))
+
+    # 90 patches in chunks of 16: five of 16 and one of 10
+    from wavedm_tpu_torch.diffusion.sampling import overlapping_grid_corners
+
+    cfg = production_profile()
+    patches = N_IMAGES * len(overlapping_grid_corners(
+        HEIGHT // 4, WIDTH // 4, cfg.data.image_size, cfg.sampling.grid_r))
+    chunks = -(-patches // 16)
+    mb = restorer(sampling__patch_micro_batch=16)
+    mb_out, first_ms, _ = counted_restore(
+        mb, images, gn_want(steps, chunks), "micro16", launches)
+    mb_ms = [restore_timed(mb, images)[2] / N_IMAGES for _ in range(2)]
+    del mb
+    diff = float((mb_out - outs["ddim"]).abs().max())
+    assert diff <= bf16_gap, (diff, bf16_gap)
+    emit("sampler", chain="patch_micro_batch16", patches=patches,
+         chunks=chunks,
+         first_ms_per_image=first_ms / N_IMAGES, ms_per_image_runs=mb_ms,
+         ms_per_image=sum(mb_ms) / len(mb_ms),
+         over_unbatched=sum(mb_ms) / len(mb_ms) / ms["ddim"],
+         max_abs_diff_vs_unbatched=diff, tol_bf16_vs_f32_gap=bf16_gap)
+
+    hw = whole_image_hw(cfg)
+    whole = {}
+    for name, changes, want in (
+            ("bf16", {}, gn_want(steps, 1)),
+            ("f32", {"parallel__compute_dtype": "float32"},
+             gn_want(steps, 1, "f32")),
+            ("bf16_fused_resblock", {"parallel__fused_groupnorm": False,
+                                     "parallel__fused_resblock": True},
+             {"fused_gn_swish_conv_bf16": 44 * steps, "wavelet_dec": 2,
+              "wavelet_rec": 1})):
+        rest = restorer(weights=name != "f32", sampling__whole_image=True,
+                        **changes)
+        out, first_ms, got = counted_restore(rest, images, want,
+                                             f"whole_image {name}", launches)
+        peak = torch.cuda.max_memory_allocated()
+        # float32 goes through cuDNN's float32 convolutions: seconds a run
+        w_ms = [restore_timed(rest, images)[2] / N_IMAGES
+                for _ in range(1 if name == "f32" else 2)]
+        del rest
+        whole[name] = out
+        emit("sampler", chain="whole_image", variant=name,
+             unet_input=[N_IMAGES, 96, *hw], launches=got,
+             first_ms_per_image=first_ms / N_IMAGES, ms_per_image_runs=w_ms,
+             ms_per_image=sum(w_ms) / len(w_ms), peak_bytes=peak,
+             out_min=float(out.min()), out_max=float(out.max()))
+    whole_gap = float((whole["bf16"] - whole["f32"]).abs().max())
+    fr_diff = float((whole["bf16_fused_resblock"] - whole["bf16"]).abs().max())
+    assert fr_diff <= whole_gap, (fr_diff, whole_gap)
+    emit("sampler", chain="whole_image", fused_resblock_vs_fused_groupnorm=
+         fr_diff, tol_bf16_vs_f32_gap=whole_gap)
+    torch.cuda.empty_cache()
+
+
+EVAL_PAIRS = 4
+
+
+def eval_phase(launches):
+    """The evaluation entry points as a user runs them, on the production
+    profile with ``fused_groupnorm``: four synthetic 720x480 pairs written
+    as PNG by the port's codec into a RainDrop-shaped tree (read back bit
+    for bit), ``cli/eval_diffusion.main`` over them in batches of two with
+    image dumps, and ``cli/restore.main`` over the inputs.  Each CLI run is
+    counted; its dumps must read back at 720x480.  The weights are random,
+    so the metrics are not a quality number."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.cli import eval_diffusion
+    from wavedm_tpu_torch.cli import restore as restore_cli
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.data.synthetic import SyntheticPairs
+    from wavedm_tpu_torch.utils.images import read_png, to_uint8, write_png
+
+    root = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    split = os.path.join(root, "data", "raindrop", "raindrop_test")
+    try:
+        src = SyntheticPairs(height=HEIGHT, width=WIDTH, n_images=EVAL_PAIRS,
+                             seed=SEED)
+        t = time.perf_counter()
+        written = {}
+        for i in range(EVAL_PAIRS):
+            for folder, name, img in (("input", f"{i}_rain.png", src[i][0]),
+                                      ("gt", f"{i}_clean.png", src[i][1])):
+                path = os.path.join(split, folder, name)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                written[path] = to_uint8(img)
+                write_png(path, written[path])
+        write_ms = (time.perf_counter() - t) * 1e3 / len(written)
+        t = time.perf_counter()
+        for path, img in written.items():
+            assert np.array_equal(read_png(path), img), path
+        read_ms = (time.perf_counter() - t) * 1e3 / len(written)
+
+        common = ["--config", "production", "--device", "cuda",
+                  "--set", "parallel.fused_groupnorm=true"]
+        prod = production_profile().sampling
+        steps = len(range(0, prod.t_start, max(1, prod.t_start
+                                               // prod.sampling_timesteps)))
+        batches = EVAL_PAIRS // 2          # each CLI restores 2 at a time
+        want = {"group_norm_bf16_swish": 45 * steps * batches,
+                "group_norm_bf16": 6 * steps * batches,
+                "wavelet_dec": 2 * batches, "wavelet_rec": batches}
+        dump = os.path.join(root, "dump")
+        runs = {}
+        for name, main, argv in (
+                ("eval_diffusion", eval_diffusion.main, common + [
+                    "--set", f"data.data_dir={os.path.join(root, 'data')}",
+                    "--eval-batch", "2", "--image-folder", dump]),
+                ("restore", restore_cli.main, common + [
+                    "--input", os.path.join(split, "input"),
+                    "--out", os.path.join(root, "restored"),
+                    "--batch", "2"])):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                assert main(argv) == 0, name
+            torch.cuda.synchronize()
+            runs[name] = dict(
+                ms_per_image=(time.perf_counter() - t) * 1e3 / EVAL_PAIRS,
+                stdout=buf.getvalue().splitlines()[-6:])
+            counts = read_counts()
+            got = {k: v for k, v in counts.items() if v}
+            assert got == want, (name, got, want)
+            for key, val in counts.items():
+                launches[key] += val
+
+        metrics = {}
+        for line in runs["eval_diffusion"]["stdout"]:
+            for label in ("psnr all torch", "psnr all np", "psnr all GPU",
+                          "ssim all"):
+                if line.startswith(label + " "):
+                    metrics[label] = float(line[len(label) + 1:])
+        assert len(metrics) == 4 and all(np.isfinite(v)
+                                         for v in metrics.values()), metrics
+        assert f"({EVAL_PAIRS} images)" in runs["eval_diffusion"]["stdout"]
+        dumps = [os.path.join(dump, f"{i}_rain_{kind}.png")
+                 for i in range(EVAL_PAIRS)
+                 for kind in ("output", "cond", "gt")]
+        dumps += [os.path.join(root, "restored", f"{i}_rain_restored.png")
+                  for i in range(EVAL_PAIRS)]
+        for path in dumps:
+            assert read_png(path).shape == (HEIGHT, WIDTH, 3), path
+        for i in range(EVAL_PAIRS):
+            gt = read_png(os.path.join(dump, f"{i}_rain_gt.png"))
+            assert np.array_equal(gt, written[os.path.join(
+                split, "gt", f"{i}_clean.png")])
+        emit("eval", profile="production", pairs=EVAL_PAIRS,
+             metrics=metrics,
+             note="random weights: the metrics are not a quality number",
+             eval_ms_per_image=runs["eval_diffusion"]["ms_per_image"],
+             restore_ms_per_image=runs["restore"]["ms_per_image"],
+             per_image_includes="model build, PNG decode and encode, "
+             "restoration, metrics (eval)", launches=want,
+             png_write_ms=write_ms, png_read_ms=read_ms,
+             dumps_checked=len(dumps),
+             restore_stdout=runs["restore"]["stdout"][-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def small_train_cfg():
@@ -904,6 +1271,7 @@ def main(argv=None):
     k_per_image = 45
     rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
     rows.update(check_fused_kernels(ref_cfg))
+    check_whole_image_kernels(prod_cfg)
 
     small_parity()
 
@@ -916,21 +1284,13 @@ def main(argv=None):
         n_hfrm = sum(p.numel() for p in rest.hfrm.parameters())
         assert (n_unet, n_hfrm) == (156_492_675, 15_941_667), (n_unet, n_hfrm)
         steps = len(rest.seq)
-        # the counted run: counts start at 0 just before it
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        out, _, first_ms = restore_timed(rest, images)
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        check_output(out)
         tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
         want = {f"group_norm_{tag}_swish": 45 * steps,
                 f"group_norm_{tag}": 6 * steps,
                 "wavelet_dec": 2, "wavelet_rec": 1}
-        got = {k: v for k, v in counts.items() if v}
-        assert got == want, (name, got, want)
-        for key, val in counts.items():
-            launches[key] += val
+        out, first_ms, got = counted_restore(rest, images, want, name,
+                                             launches)
+        peak = torch.cuda.max_memory_allocated()
         _, _, steady_ms = restore_timed(rest, images)
         outs[name] = out, steady_ms
         emit("restore", profile=name, steps=steps,
@@ -975,17 +1335,10 @@ def main(argv=None):
     fr_cfg.parallel.fused_resblock = True
     fr_cfg.validate()
     fr_rest = build_restorer(fr_cfg, unet_sd, hfrm_sd, device="cuda")
-    reset_counts()
-    fr_out, _, fr_first_ms = restore_timed(fr_rest, images)
-    counts = read_counts()
-    check_output(fr_out)
-    steps = len(fr_rest.seq)
-    want = {"fused_gn_swish_conv_bf16": 44 * steps, "wavelet_dec": 2,
-            "wavelet_rec": 1}
-    got = {k: v for k, v in counts.items() if v}
-    assert got == want, ("restore_fused_resblock", got, want)
-    for key, val in counts.items():
-        launches[key] += val
+    want = {"fused_gn_swish_conv_bf16": 44 * len(fr_rest.seq),
+            "wavelet_dec": 2, "wavelet_rec": 1}
+    fr_out, fr_first_ms, got = counted_restore(
+        fr_rest, images, want, "restore_fused_resblock", launches)
     _, _, fr_ms = restore_timed(fr_rest, images)
     del fr_rest
     fr_diff = float((fr_out - fused_out).abs().max())
@@ -997,8 +1350,10 @@ def main(argv=None):
          max_abs_diff_vs_fused_groupnorm=fr_diff,
          mean_abs_diff=float((fr_out - fused_out).abs().mean()),
          tol_bf16_vs_f32_gap=bf16_gap)
+    sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches)
     del unet_sd
     torch.cuda.empty_cache()
+    eval_phase(launches)
 
     # the reference profile (float32, TF32 off, 25 steps from noise) with
     # the fused kernel at all 44 pairs, against the reference restore with
@@ -1012,17 +1367,10 @@ def main(argv=None):
     fr_ref_cfg.parallel.fused_resblock = True
     fr_ref_cfg.validate()
     fr_ref = build_restorer(fr_ref_cfg, None, None, device="cuda")
-    reset_counts()
-    fr_ref_out, _, fr_ref_first_ms = restore_timed(fr_ref, images)
-    counts = read_counts()
-    check_output(fr_ref_out)
-    steps = len(fr_ref.seq)
-    want = {"fused_gn_swish_conv_f32": 44 * steps, "wavelet_dec": 2,
-            "wavelet_rec": 1}
-    got = {k: v for k, v in counts.items() if v}
-    assert got == want, ("restore_fused_resblock reference", got, want)
-    for key, val in counts.items():
-        launches[key] += val
+    want = {"fused_gn_swish_conv_f32": 44 * len(fr_ref.seq),
+            "wavelet_dec": 2, "wavelet_rec": 1}
+    fr_ref_out, fr_ref_first_ms, got = counted_restore(
+        fr_ref, images, want, "restore_fused_resblock reference", launches)
     _, _, fr_ref_ms = restore_timed(fr_ref, images)
     del fr_ref
     torch.cuda.empty_cache()

@@ -141,6 +141,99 @@ def test_small_restoration_matches_cpu(cuda):
     np.testing.assert_allclose(out, ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("variant", [
+    dict(solver="dpmpp2m"), dict(pred_type="v"), dict(eta=0.5),
+    dict(patch_micro_batch=3), dict(whole_image=True),
+], ids=["dpmpp2m", "v", "eta0.5", "micro_batch3", "whole_image"])
+def test_small_restoration_variants_match_cpu(cuda, variant):
+    """The sampler's other chains through the kernels, against the CPU;
+    at eta > 0 both sides take the same injected step noise."""
+    from wavedm_tpu_torch.config import config_from_dict
+    from wavedm_tpu_torch.inference.loader import build_restorer
+
+    variant = dict(variant)
+    pred_type = variant.pop("pred_type", "eps")
+    cfg = config_from_dict({
+        "data": {"image_size": 8, "patch_size": 32},
+        "model": {"ch": 32, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [4]},
+        "hfrm": {"dim": 8, "enc_blk_nums": [1, 1], "middle_blk_num": 1,
+                 "dec_blk_nums": [1, 1]},
+        "training": {"pred_type": pred_type},
+        "sampling": {"sampling_timesteps": 5, **variant},
+        "parallel": {"fused_groupnorm": True}})
+    images = np.random.default_rng(0).random((2, 64, 96, 3), dtype=np.float32)
+    g = torch.Generator().manual_seed(0)
+    noise = torch.randn(2, 3, 16, 24, generator=g)
+    step_noise = torch.randn(5, 2, 3, 16, 24, generator=g)
+    cpu = build_restorer(cfg, None, None, device="cpu")
+    gpu = build_restorer(cfg, cpu.unet.state_dict(), cpu.hfrm.state_dict(),
+                         device=cuda)
+    ref, _ = cpu.restore_image(images, noise=noise, step_noise=step_noise)
+    out, _ = gpu.restore_image(images, noise=noise, step_noise=step_noise)
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+# The flagship UNet's sites on the whole-image path (sampling.whole_image):
+# two 720x480 images reach it as (2, 96, 120, 184) wavelet inputs, so its
+# levels run at 120x184, 60x92, 30x46 and 15x23, neither square nor powers
+# of two.  GroupNorm (C, H, W, swish) and GN -> swish -> conv3x3
+# (Cin, H, W, Cout), from a forward on the meta device.
+WHOLE_GN_SITES = [
+    (128, 60, 92, True), (128, 120, 184, True), (256, 30, 46, True),
+    (256, 60, 92, True), (256, 120, 184, True), (384, 60, 92, True),
+    (384, 120, 184, True), (512, 15, 23, True), (512, 30, 46, False),
+    (512, 30, 46, True), (512, 60, 92, True), (768, 15, 23, False),
+    (768, 15, 23, True), (768, 30, 46, True), (768, 60, 92, True),
+    (1024, 30, 46, True), (1280, 15, 23, True), (1280, 30, 46, True),
+    (1536, 15, 23, True)]
+WHOLE_FUSED_SITES = [
+    (128, 60, 92, 256), (128, 120, 184, 128), (256, 30, 46, 512),
+    (256, 60, 92, 256), (256, 120, 184, 128), (384, 60, 92, 256),
+    (384, 120, 184, 128), (512, 15, 23, 768), (512, 30, 46, 512),
+    (512, 60, 92, 256), (768, 15, 23, 768), (768, 30, 46, 512),
+    (768, 60, 92, 256), (1024, 30, 46, 512), (1280, 15, 23, 768),
+    (1280, 30, 46, 512), (1536, 15, 23, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", WHOLE_GN_SITES,
+                         ids=lambda s: "{}x{}x{}{}".format(
+                             *s[:3], "_swish" if s[3] else ""))
+def test_group_norm_kernel_at_whole_image_sites(cuda, site, dtype):
+    """Tolerances as test_group_norm_kernel_matches_plain."""
+    c, h, w, swish = site
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn(2, c, h, w, device=cuda, generator=g) * 3 + 1).to(dtype)
+    wt = torch.randn(c, device=cuda, generator=g)
+    b = torch.randn(c, device=cuda, generator=g)
+    y = groupnorm_cuda.group_norm(x, wt, b, 32, 1e-6, swish)
+    ref = groupnorm_cuda.group_norm_plain(x, wt, b, 32, 1e-6, swish)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(y.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", WHOLE_FUSED_SITES,
+                         ids=lambda s: "{}x{}x{}to{}".format(*s))
+def test_fused_kernel_at_whole_image_sites(cuda, site, dtype):
+    """Tolerances as test_fused_kernel_matches_plain; W = 184 is wider than
+    the 130-pixel halo run, so the three runs stay apart."""
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    cin, h, w, cout = site
+    args = _fused_inputs(cuda, 2, cin, cout, h, w, dtype)
+    out = fr.fused_gn_swish_conv(*args, dtype)
+    ref = fr.fused_gn_swish_conv_plain(*args, dtype)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * float(ref.float().abs().max()), err
+
+
 # The flagship UNet's 17 GN -> swish -> conv3x3 site shapes (H = W, Cin,
 # Cout) at 64x64 patches: chip_smoke.fused_sites derives them.
 FUSED_SHAPES = [(64, 128, 128), (64, 256, 128), (64, 384, 128),

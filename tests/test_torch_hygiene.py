@@ -1,7 +1,7 @@
 """PyTorch port hygiene: what the GPU machine's installation allows.
 
-That machine has torch, numpy and the CUDA toolkit but no jax, flax, yaml
-or PIL, and the port must not lean on the JAX package.  The entry points
+The port needs only torch, numpy and the CUDA toolkit there: it runs with
+jax, flax, yaml and PIL blocked, and never leans on the JAX package.  The entry points
 run on the card unless the caller names the CPU, and a kernel wrapper
 handed a non-CPU tensor launches its kernel or raises -- never falls back.
 """
@@ -60,6 +60,37 @@ def test_every_module_imports_without_jax_yaml_or_pil():
                                    log_fn=lambda s: None)
         trainer.fit(smoke_batches(cfg, n_crops=2, n_batches=1), max_steps=1)
         assert trainer.state.step == 1
+        # the PNG codec, restore() with its dumps and both CLIs need no
+        # PIL and no yaml either (the CLIs take a built-in profile by name)
+        import os, tempfile
+        from wavedm_tpu_torch.cli import eval_diffusion, restore
+        from wavedm_tpu_torch.utils.images import read_png, write_png
+        tmp = tempfile.mkdtemp()
+        img = np.arange(32 * 32 * 3, dtype=np.uint8).reshape(32, 32, 3)
+        os.makedirs(os.path.join(tmp, "in"))
+        write_png(os.path.join(tmp, "in", "a.png"), img)
+        assert (read_png(os.path.join(tmp, "in", "a.png")) == img).all()
+        res = rest.restore([(np.full((32, 32, 6), 0.5, np.float32), "p")],
+                           save_dir=os.path.join(tmp, "dump"))
+        assert res["n_images"] == 1
+        assert read_png(os.path.join(tmp, "dump", "p_output.png")).shape \
+            == (32, 32, 3)
+        tiny = ["--config", "production", "--device", "cpu"]
+        for ov in ("model.ch=32", "model.ch_mult=[1]",
+                   "model.num_res_blocks=1", "model.attn_resolutions=[]",
+                   "data.image_size=8", "data.patch_size=32", "hfrm.dim=8",
+                   "hfrm.enc_blk_nums=[1]", "hfrm.dec_blk_nums=[1]",
+                   "hfrm.middle_blk_num=1", "sampling.sampling_timesteps=2"):
+            tiny += ["--set", ov]
+        assert restore.main(tiny + ["--input", os.path.join(tmp, "in"),
+                                    "--out", os.path.join(tmp, "out"),
+                                    "--no-resize"]) == 0
+        assert os.path.exists(os.path.join(tmp, "out", "a_restored.png"))
+        assert eval_diffusion.main(tiny + [
+            "--smoke", "--n-images", "1",
+            "--set", "data.data_dir=" + os.path.join(tmp, "none")]) == 0
+        import shutil
+        shutil.rmtree(tmp)
         loaded = [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]
         assert not loaded, loaded
         print("imported", len(names))

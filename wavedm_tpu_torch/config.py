@@ -3,12 +3,16 @@
 Same sections, keys, defaults and validation as ``wavedm_tpu/config.py``, so
 the YAML files under ``wavedm_tpu/configs/`` load unchanged.  ``yaml`` is
 imported only inside the YAML loaders; everything the restoration path
-runs builds its ``Config`` in code.
+runs builds its ``Config`` in code.  Where ``yaml`` is not installed,
+:func:`load_config` still takes the two built-in profiles by name
+(``reference``, ``production``) and ``--set`` values as JSON, or as plain
+strings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -294,12 +298,23 @@ def config_from_dict(raw: dict) -> Config:
     return Config(**sections).validate()
 
 
+def _parse_value(text: str):
+    """An override's value: YAML where ``yaml`` is installed; else JSON
+    (numbers, true/false, lists), else the string itself."""
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(text)
+        except ValueError:
+            return text.strip()
+    return yaml.safe_load(text)
+
+
 def apply_overrides(raw: dict, overrides) -> dict:
     """Apply ``section.key=value`` strings (values YAML-parsed, as the
     JAX package's ``--set``) to a raw config mapping; unknown sections and
     keys still fail in :func:`config_from_dict`."""
-    import yaml
-
     for ov in overrides:
         key, eq, sval = ov.partition("=")
         parts = key.strip().split(".")
@@ -310,17 +325,21 @@ def apply_overrides(raw: dict, overrides) -> dict:
         if not isinstance(raw.get(sec, {}), dict):
             raise ConfigError(f"override '{ov}': section '{sec}' is not a "
                               "mapping")
-        raw.setdefault(sec, {})[k] = yaml.safe_load(sval)
+        raw.setdefault(sec, {})[k] = _parse_value(sval)
     return raw
 
 
 def load_config(path: str, overrides=()) -> Config:
-    """Load and validate a YAML config file (the reference's schema), with
+    """Load and validate a YAML config file (the reference's schema), or a
+    built-in profile by name (``reference``, ``production``), with
     ``section.key=value`` overrides applied before validation."""
-    import yaml
+    if path in PROFILES:
+        raw = dataclasses.asdict(PROFILES[path]())
+    else:
+        import yaml
 
-    with open(path, "r") as f:
-        raw = yaml.safe_load(f)
+        with open(path, "r") as f:
+            raw = yaml.safe_load(f)
     if not isinstance(raw, dict):
         raise ConfigError(f"config file {path} did not parse to a mapping")
     if overrides:
@@ -349,3 +368,6 @@ def production_profile() -> Config:
                                   init_ll="hfrm", x0_pred_index=-1)
     cfg.parallel = ParallelConfig(compute_dtype="bfloat16")
     return cfg.validate()
+
+
+PROFILES = {"reference": reference_profile, "production": production_profile}

@@ -1,26 +1,34 @@
-"""Overlapping-patch DDIM sampling on NCHW tensors.
+"""Reverse diffusion chains on NCHW tensors: tiled and whole-image.
 
-The wavelet-domain image is covered by a static grid of p x p patches at
-stride ``grid_r`` (plus flush right/bottom rows).  Each step gathers the
-patches of all B images into one (B*K)-patch batch (image-major), runs the
-UNet on it once, scatter-adds the noise estimates back, divides by the
-count mask, and applies the deterministic DDIM update.
+``make_overlapping_sampler`` covers the wavelet-domain image with a static
+grid of p x p patches at stride ``grid_r`` (plus flush right/bottom rows).
+Each step gathers the patches of all B images into one (B*K)-patch batch
+(image-major), runs the UNet on it (in chunks of ``patch_micro_batch`` when
+set), scatter-adds the estimates back, divides by the count mask, and
+applies the update.  ``ddim_sample`` runs the same chain over whole images.
 
-Ported: ``solver="ddim"`` with ``eta=0``, ``pred_type="eps"`` and
-``x0_keep``.  The other options of the JAX sampler raise
-``NotImplementedError``.
+Both take ``solver`` "ddim" (``eta`` >= 0) or "dpmpp2m" (DPM-Solver++(2M),
+deterministic), and ``pred_type`` "eps" or "v" (a velocity output becomes
+the implied epsilon, on the tiled path after the overlap average).  With
+``eta`` > 0 each step adds noise drawn from an explicit
+``torch.Generator``, or taken from an injected ``step_noise`` of shape
+(T, B, C, H, W).  ``use_fft``, ``use_global`` and ``mesh`` of the JAX
+sampler are not ported and raise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from wavedm_tpu_torch.diffusion.schedules import alpha_bars
 
-__all__ = ["overlapping_grid_corners", "make_overlapping_sampler"]
+__all__ = ["overlapping_grid_corners", "ddim_sample",
+           "make_overlapping_sampler"]
+
+Steps = List[Dict[str, float]]
 
 
 def overlapping_grid_corners(h: int, w: int, p: int,
@@ -58,12 +66,137 @@ def _ddim_coeffs(betas: torch.Tensor, seq: np.ndarray, eta: float):
     return (torch.as_tensor(t_cur, dtype=torch.float32), at, at_next, c1, c2)
 
 
-def _not_ported(**options) -> None:
-    for name, (value, default) in options.items():
-        if value != default:
-            raise NotImplementedError(
-                f"make_overlapping_sampler: {name}={value!r} is not ported "
-                "to the PyTorch sampler yet")
+def _dpmpp2m_coeffs(betas: torch.Tensor, seq: np.ndarray):
+    """Per-step (t, at, sig_ratio, alpha_next, em1, c2) of DPM-Solver++(2M)
+    (Lu et al. 2022), computed in float64 from the float32 alpha-bars and
+    cast to float32.
+
+    With lam = log(alpha/sigma) and h_i = lam_{i+1} - lam_i, step i maps
+    x_i to (sig_{i+1}/sig_i) x_i - alpha_{i+1} expm1(-h_i) D~_i, where
+    D~_i = (1 + c2_i) D_i - c2_i D_{i-1} and c2_i = h_i / (2 h_{i-1}).  The
+    first and the last step are first order (c2 = 0); on the last,
+    sigma -> 0 gives expm1(-inf) = -1 and a zero ratio, so x = D~."""
+    abar = alpha_bars(betas.to(torch.float32)).double().numpy()
+    seq = np.asarray(seq)
+    t_cur = seq[::-1].copy()
+    t_next = np.concatenate([[-1], seq[:-1]])[::-1].copy()
+    a_cur, a_next = abar[t_cur + 1], abar[t_next + 1]
+    alpha_c, sigma_c = np.sqrt(a_cur), np.sqrt(1 - a_cur)
+    alpha_n, sigma_n = np.sqrt(a_next), np.sqrt(1 - a_next)
+    with np.errstate(divide="ignore"):
+        lam_c = np.log(alpha_c / sigma_c)
+        lam_n = np.where(sigma_n > 0, np.log(
+            alpha_n / np.where(sigma_n > 0, sigma_n, 1.0)), np.inf)
+    h = lam_n - lam_c
+    sig_ratio = np.where(sigma_c > 0, sigma_n / sigma_c, 0.0)
+    em1 = np.expm1(-h)
+    c2 = np.zeros_like(h)
+    if len(h) > 1:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            c2[1:] = h[1:] / (2.0 * h[:-1])
+    c2[-1] = 0.0
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    return (f32(t_cur), f32(a_cur), f32(sig_ratio), f32(alpha_n), f32(em1),
+            f32(c2))
+
+
+def _check_chain(solver: str, eta: float, pred_type: str) -> None:
+    if solver not in ("ddim", "dpmpp2m"):
+        raise ValueError(f"solver must be ddim or dpmpp2m, got {solver!r}")
+    if solver == "dpmpp2m" and eta > 0:
+        raise ValueError("dpmpp2m is deterministic; eta must be 0")
+    if pred_type not in ("eps", "v"):
+        raise ValueError(f"pred_type must be eps or v, got {pred_type!r}")
+
+
+def _chain_steps(betas: torch.Tensor, seq: np.ndarray, eta: float,
+                 solver: str) -> Steps:
+    """The per-step constants in chain order, as Python floats holding the
+    float32 values."""
+    betas = betas.cpu()
+    if solver == "ddim":
+        t, at, at_next, c1, c2 = _ddim_coeffs(betas, seq, eta)
+        cols = dict(t=t, sqrt_anx=torch.sqrt(at_next), c1=c1, c2=c2)
+    else:
+        t, at, sig_ratio, alpha_n, em1, c2 = _dpmpp2m_coeffs(betas, seq)
+        cols = dict(t=t, sig_ratio=sig_ratio, alpha_n=alpha_n, em1=em1,
+                    c2=c2)
+    cols.update(sqrt_a=torch.sqrt(at), sqrt_1ma=torch.sqrt(1 - at))
+    names = list(cols)
+    return [dict(zip(names, vals))
+            for vals in zip(*(cols[k].tolist() for k in names))]
+
+
+def _noise_source(eta: float, generator: Optional[torch.Generator],
+                  step_noise: Optional[torch.Tensor], n_steps: int,
+                  x: torch.Tensor) -> Callable[[int], Optional[torch.Tensor]]:
+    """step -> the noise the step adds: None at eta = 0; else
+    ``step_noise[i]``, or a (B, C, H, W) draw from ``generator`` (default:
+    seed 0 on x's device)."""
+    if eta <= 0:
+        return lambda i: None
+    if step_noise is not None:
+        want = (n_steps,) + tuple(x.shape)
+        if tuple(step_noise.shape) != want:
+            raise ValueError(f"step_noise must be {want}, got "
+                             f"{tuple(step_noise.shape)}")
+        return lambda i: step_noise[i].to(device=x.device, dtype=x.dtype)
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+    return lambda i: torch.randn(x.shape, generator=generator,
+                                 device=x.device, dtype=x.dtype)
+
+
+def _reverse_step(s: Dict[str, float], xt: torch.Tensor, et: torch.Tensor,
+                  d_prev: Optional[torch.Tensor], pred_type: str,
+                  noise: Optional[torch.Tensor]):
+    """One update from the (overlap-averaged) model output ``et``; returns
+    (x_next, x0 estimate).  ``d_prev``: the previous step's x0 estimate
+    (dpmpp2m only; zeros on the first step)."""
+    if pred_type == "v":
+        # v -> implied epsilon: affine per pixel in (v, x_t), so converting
+        # after the overlap average equals averaging converted patches
+        et = s["sqrt_1ma"] * xt + s["sqrt_a"] * et
+    x0_t = (xt - et * s["sqrt_1ma"]) / s["sqrt_a"]
+    if "em1" not in s:                       # DDIM
+        x_next = s["sqrt_anx"] * x0_t
+        if noise is not None:
+            x_next = x_next + s["c1"] * noise
+        return x_next + s["c2"] * et, x0_t
+    d_tilde = (1 + s["c2"]) * x0_t - s["c2"] * d_prev
+    return s["sig_ratio"] * xt - s["alpha_n"] * s["em1"] * d_tilde, x0_t
+
+
+@torch.no_grad()
+def ddim_sample(
+    model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    x: torch.Tensor,
+    x_cond: torch.Tensor,
+    seq: np.ndarray,
+    betas: torch.Tensor,
+    *,
+    eta: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    pred_type: str = "eps",
+    solver: str = "ddim",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-image reverse chain: ``model_fn([x_cond | x_t], t)`` at every
+    step.  Returns (x_final, x0_preds) with x0_preds (T, B, C, H, W) in
+    chain order (index -1 = the last step's estimate)."""
+    _check_chain(solver, eta, pred_type)
+    steps = _chain_steps(betas, seq, eta, solver)
+    noise = _noise_source(eta, generator, step_noise, len(steps), x)
+    # x0_t carries D_{i-1} for dpmpp2m
+    xt, x0s = x, []
+    x0_t = torch.zeros_like(x) if solver == "dpmpp2m" else None
+    for i, s in enumerate(steps):
+        t = torch.full((x.shape[0],), s["t"], dtype=torch.float32,
+                       device=x.device)
+        et = model_fn(torch.cat([x_cond, xt], dim=1), t)
+        xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
+        x0s.append(x0_t)
+    return xt, torch.stack(x0s)
 
 
 def make_overlapping_sampler(
@@ -85,32 +218,32 @@ def make_overlapping_sampler(
     pred_type: str = "eps",
     solver: str = "ddim",
 ):
-    """Build the tiled DDIM sampler for a fixed (h, w) geometry.
+    """Build the tiled sampler for a fixed (h, w) geometry.
 
-    The returned ``sample(x_init, x_cond, x_other=None)`` takes NCHW
-    (B, pred, h, w), (B, Cc, h, w) and (B, Co, h, w) tensors and returns
-    ``(x_final, x0_preds)``: x0_preds is (T, B, pred, h, w), or
-    (1, B, pred, h, w) holding only step ``x0_keep`` when that is set.
-    ``model_fn(x, t)`` maps (N, Cin, p, p) and (N,) float32 timesteps to
-    the (N, pred, p, p) float32 noise estimate.
+    The returned ``sample(x_init, x_cond, x_other=None, generator=None,
+    step_noise=None)`` takes NCHW (B, pred, h, w), (B, Cc, h, w) and
+    (B, Co, h, w) tensors and returns ``(x_final, x0_preds)``: x0_preds is
+    (T, B, pred, h, w), or (1, B, pred, h, w) holding only step ``x0_keep``
+    when that is set.  ``model_fn(x, t)`` maps (N, Cin, p, p) and (N,)
+    float32 timesteps to the (N, pred, p, p) float32 output; with
+    ``patch_micro_batch`` = mb > 0 it sees chunks of at most mb patches.
     """
-    _not_ported(solver=(solver, "ddim"), eta=(eta, 0.0),
-                pred_type=(pred_type, "eps"), use_fft=(use_fft, False),
-                use_global=(use_global, False),
-                patch_micro_batch=(patch_micro_batch, 0), mesh=(mesh, None))
+    for name, value, item in (("use_fft", use_fft, 15),
+                              ("use_global", use_global, 15),
+                              ("mesh", mesh is not None, 13)):
+        if value:
+            raise NotImplementedError(
+                f"make_overlapping_sampler: {name} is not ported to the "
+                f"PyTorch sampler (ROADMAP item {item})")
+    _check_chain(solver, eta, pred_type)
+    if patch_micro_batch < 0:
+        raise ValueError("patch_micro_batch must be >= 0")
     h, w = image_shape
     p = patch_size
     corners = overlapping_grid_corners(h, w, p, grid_r)
     counts_np = _count_mask(corners, h, w, p)[None, None]
-    t_cur, at, at_next, _, c2 = _ddim_coeffs(betas.cpu(), seq, eta)
-    # float32 per-step scalars, carried as Python floats (exact f32 values)
-    ts = t_cur.tolist()
-    sqrt_a = torch.sqrt(at).tolist()
-    sqrt_1ma = torch.sqrt(1 - at).tolist()
-    sqrt_anx = torch.sqrt(at_next).tolist()
-    c2 = c2.tolist()
-    n_steps = len(ts)
-    keep_idx = None if x0_keep is None else x0_keep % n_steps
+    steps = _chain_steps(betas, seq, eta, solver)
+    keep_idx = None if x0_keep is None else x0_keep % len(steps)
 
     def gather(img: torch.Tensor) -> torch.Tensor:
         # (B, C, h, w) -> (B*K, C, p, p), image-major patch order
@@ -126,22 +259,32 @@ def make_overlapping_sampler(
             acc[:, :, i:i + p, j:j + p] += et_b[:, k]
         return acc / counts
 
+    def apply_model(inp: torch.Tensor, t: float) -> torch.Tensor:
+        tt = torch.full((inp.shape[0],), t, dtype=torch.float32,
+                        device=inp.device)
+        mb = patch_micro_batch
+        if not mb or inp.shape[0] <= mb:
+            return model_fn(inp, tt)
+        return torch.cat([model_fn(inp[s:s + mb], tt[s:s + mb])
+                          for s in range(0, inp.shape[0], mb)])
+
     @torch.no_grad()
     def sample(x_init: torch.Tensor, x_cond: torch.Tensor,
-               x_other: Optional[torch.Tensor] = None):
+               x_other: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               step_noise: Optional[torch.Tensor] = None):
         b = x_init.shape[0]
         counts = torch.as_tensor(counts_np, device=x_init.device)
+        noise = _noise_source(eta, generator, step_noise, len(steps), x_init)
         static_p = [gather(x_cond)]
         if use_other:
             static_p.append(gather(x_other))
         xt, kept, x0s = x_init, None, []
-        for i in range(n_steps):
+        x0_t = torch.zeros_like(x_init) if solver == "dpmpp2m" else None
+        for i, s in enumerate(steps):
             inp = torch.cat([static_p[0], gather(xt)] + static_p[1:], dim=1)
-            t = torch.full((inp.shape[0],), ts[i], dtype=torch.float32,
-                           device=inp.device)
-            et = scatter_mean(model_fn(inp, t), b, counts)
-            x0_t = (xt - et * sqrt_1ma[i]) / sqrt_a[i]
-            xt = sqrt_anx[i] * x0_t + c2[i] * et
+            et = scatter_mean(apply_model(inp, s["t"]), b, counts)
+            xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
             if keep_idx is None:
                 x0s.append(x0_t)
             elif i == keep_idx:

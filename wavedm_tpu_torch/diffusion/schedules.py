@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["get_beta_schedule", "alpha_bars", "ddim_timesteps"]
+__all__ = ["get_beta_schedule", "alpha_bars", "compute_alpha",
+           "ddim_timesteps"]
 
 
 def get_beta_schedule(beta_schedule: str, *, beta_start: float,
@@ -40,6 +41,13 @@ def alpha_bars(betas: torch.Tensor) -> torch.Tensor:
     boundary), so alpha_bar(t) = alpha_bars(betas)[t + 1]."""
     a = torch.cumprod(1.0 - betas, dim=0)
     return torch.cat([torch.ones(1, dtype=a.dtype, device=a.device), a])
+
+
+def compute_alpha(betas: torch.Tensor, t) -> torch.Tensor:
+    """alpha_bar(t) for integer timesteps ``t`` (t = -1 maps to 1.0), shape
+    (len(t),)."""
+    t = torch.as_tensor(t, dtype=torch.long, device=betas.device)
+    return alpha_bars(betas)[t + 1]
 
 
 def ddim_timesteps(num_diffusion_timesteps: int,

@@ -11,11 +11,15 @@ parameters cast at use, train mode, gradients on.  A UNet checkpoint path
 must have been trained with the config's ``training.pred_type`` (a
 reference file without the key counts as ``eps``): serving v-trained
 weights as eps, or the reverse, raises instead of restoring wrong images.
+A path is a reference file or the port's own checkpoint
+(``utils/checkpoint.py``, same keys); a directory (the JAX package's
+Orbax checkpoints) raises: its converter is ROADMAP item 9.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Mapping, Optional, Union
 
 import torch
@@ -74,6 +78,11 @@ def _materialize(model: nn.Module, weights: Weights, device: torch.device,
         init_random_(model, gen)
     else:
         if isinstance(weights, str):
+            if os.path.isdir(weights):
+                raise NotImplementedError(
+                    f"{weights} is a directory (an Orbax checkpoint?): only "
+                    ".pth/.pth.tar files load here; the Orbax converter is "
+                    "ROADMAP item 9")
             weights = load_torch_checkpoint(weights, ema=ema,
                                             pred_type=pred_type)
         model.load_state_dict(weights)

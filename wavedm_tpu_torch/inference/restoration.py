@@ -1,28 +1,35 @@
-"""Full-image diffusive restoration on the wavelet path.
+"""Full-image diffusive restoration on the wavelet path, and its
+evaluation loop.
 
 For a batch of (B, H, W, 3) degraded images in [0, 1]:
 
   pixels -> [-1,1] -> Haar DWT (scale 2) -> 48 cond channels at H/4 x W/4
   HFRM(pixels) -> [-1,1] -> DWT -> the 45 high-frequency channels
   x_T: pure noise, or with ``sampling.t_start`` the HFRM LL band noised
-  tiled DDIM over 64x64 wavelet patches -> x0 at ``x0_pred_index``
+  the reverse chain: tiled over 64x64 wavelet patches -> x0 at
+  ``x0_pred_index``; or, with ``sampling.whole_image``, over the whole
+  wavelet image reflect-padded to the UNet's 2**(levels-1) -> final x
   [diffusion LL(3) | HFRM HF(45)] -> IWT -> [0,1]
 
 All of it stays on the device; the B images run as one (B*K)-patch UNet
 batch per step.  Tensors are NCHW inside; the public entry points take and
 return NHWC images as the JAX ``DiffusiveRestoration`` does.
+:meth:`DiffusiveRestoration.restore` scores (pair, id) samples with the
+reference's PSNR variants and SSIM on the host and can dump the images.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from wavedm_tpu_torch.config import Config
-from wavedm_tpu_torch.diffusion.sampling import make_overlapping_sampler
+from wavedm_tpu_torch.diffusion.sampling import (ddim_sample,
+                                                 make_overlapping_sampler)
 from wavedm_tpu_torch.diffusion.schedules import (ddim_timesteps,
                                                   get_beta_schedule)
 from wavedm_tpu_torch.inference.loader import resolve_device
@@ -57,9 +64,9 @@ class DiffusiveRestoration:
         if not cfg.data.wavelet or cfg.data.wavelet_in_unet or cfg.data.lap:
             raise NotImplementedError(
                 "only the wavelet restoration path is ported")
-        if cfg.sampling.whole_image or cfg.data.global_attn:
+        if cfg.data.global_attn:
             raise NotImplementedError(
-                "whole_image and global_attn sampling are not ported yet")
+                "global_attn sampling is not ported yet (ROADMAP item 15)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.unet, self.hfrm = unet, hfrm
@@ -109,34 +116,69 @@ class DiffusiveRestoration:
             return None
         return None if self.cfg.data.begin_from_noise else cond[:, :pc]
 
+    def _make_sampler(self, h: int, w: int) -> Callable:
+        """The chain for wavelet geometry (h, w): tiled, or with
+        ``sampling.whole_image`` over the whole image, reflect-padded to
+        the UNet's 2**(levels-1) divisibility and cropped back.  Both map
+        (x_init, x_cond, x_other, generator, step_noise) to
+        (x_final, x0_preds); on the whole-image path ``step_noise`` has the
+        padded geometry."""
+        cfg, m = self.cfg, self.cfg.model
+        chain = dict(seq=self.seq, betas=self.betas, eta=cfg.sampling.eta,
+                     pred_type=cfg.training.pred_type,
+                     solver=cfg.sampling.solver)
+        if not cfg.sampling.whole_image:
+            return make_overlapping_sampler(
+                self.unet,
+                image_shape=(h, w),
+                patch_size=cfg.data.image_size,
+                grid_r=cfg.sampling.grid_r,
+                pred_channels=m.pred_channels,
+                use_other=m.use_other_channels,
+                patch_micro_batch=cfg.sampling.patch_micro_batch,
+                x0_keep=cfg.sampling.x0_pred_index,
+                **chain)
+        div = 2 ** (len(m.ch_mult) - 1)
+        pad = (0, (-w) % div, 0, (-h) % div)
+
+        def reflect(x: torch.Tensor) -> torch.Tensor:
+            return F.pad(x, pad, mode="reflect") if any(pad) else x
+
+        def sample(x_init, x_cond, x_other=None, generator=None,
+                   step_noise=None):
+            other_p = None if x_other is None else reflect(x_other)
+
+            def model_fn(xx, tt):
+                # ddim_sample hands over [cond | xt]; the HF channels follow
+                if other_p is not None:
+                    xx = torch.cat([xx, other_p], dim=1)
+                return self.unet(xx, tt)
+
+            x_final, x0s = ddim_sample(
+                model_fn, reflect(x_init), reflect(x_cond),
+                generator=generator, step_noise=step_noise, **chain)
+            return x_final[:, :, :h, :w], x0s[..., :h, :w]
+
+        return sample
+
     def _select_output(self, x_final: torch.Tensor,
                        x0_preds: torch.Tensor) -> torch.Tensor:
-        """The x0 estimate at ``x0_pred_index``: the sampler is built with
-        ``x0_keep``, so x0_preds holds exactly that one estimate."""
+        """Tiled path: the x0 estimate at ``x0_pred_index`` (the sampler is
+        built with ``x0_keep``, so x0_preds holds exactly that one).
+        Whole-image path: the final x."""
+        if self.cfg.sampling.whole_image:
+            return x_final
         return x0_preds[0]
 
     def _build_wavelet_restore(self, h: int, w: int) -> Callable:
         """Restore pipeline for pixel geometry (h, w), working in the
         wavelet domain (h/4, w/4)."""
-        cfg, m = self.cfg, self.cfg.model
-        hw, ww = h // 4, w // 4
-        sampler = make_overlapping_sampler(
-            self.unet,
-            image_shape=(hw, ww),
-            patch_size=cfg.data.image_size,
-            grid_r=cfg.sampling.grid_r,
-            seq=self.seq,
-            betas=self.betas,
-            pred_channels=m.pred_channels,
-            eta=cfg.sampling.eta,
-            use_other=m.use_other_channels,
-            patch_micro_batch=cfg.sampling.patch_micro_batch,
-            x0_keep=cfg.sampling.x0_pred_index,
-            pred_type=cfg.training.pred_type,
-            solver=cfg.sampling.solver,
-        )
+        m = self.cfg.model
+        sampler = self._make_sampler(h // 4, w // 4)
 
-        def restore(cond_pixel: torch.Tensor, noise: torch.Tensor):
+        def restore(cond_pixel: torch.Tensor, noise: torch.Tensor,
+                    generator: torch.Generator,
+                    step_noise: Optional[torch.Tensor]):
             # cond_pixel: (B, 3, h, w) in [0,1]; noise: (B, pred, h/4, w/4)
             cond_w = wavelet_dec(data_transform(cond_pixel))
             restored = self.hfrm(cond_pixel)
@@ -145,7 +187,8 @@ class DiffusiveRestoration:
                 self._init_base_ll(cond_w, hfrm_w), noise)
             x_other = (hfrm_w[:, m.other_channels_begin:]
                        if m.use_other_channels else None)
-            x_final, x0_preds = sampler(x_init, cond_w, x_other)
+            x_final, x0_preds = sampler(x_init, cond_w, x_other, generator,
+                                        step_noise)
             sel = self._select_output(x_final, x0_preds)
             full = torch.cat([sel[:, :m.pred_channels],
                               hfrm_w[:, m.pred_channels:]], dim=1)
@@ -162,13 +205,16 @@ class DiffusiveRestoration:
     def restore_image_device(
         self, cond_pixel, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        step_noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B|None, H, W, 3) [0,1] image(s) -> (restored, hfrm_out), both
         (B, H, W, 3) float32 on the device, with no host transfer.
 
         ``noise``: x_T draw as (B, pred_channels, H/4, W/4); when None it is
         drawn on the device from ``generator`` (default: seeded with
-        ``training.seed``)."""
+        ``training.seed``), which also draws the per-step noise at
+        ``sampling.eta`` > 0 unless ``step_noise`` (T, B, pred, h, w) is
+        given."""
         x = torch.as_tensor(cond_pixel, dtype=torch.float32,
                             device=self.device)
         if x.dim() == 3:
@@ -177,25 +223,88 @@ class DiffusiveRestoration:
         if h % 4 or w % 4:
             raise ValueError(f"image dims {(h, w)} must be divisible by 4")
         shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.cfg.training.seed)
         if noise is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(
-                    self.cfg.training.seed)
             noise = torch.randn(shape, generator=generator,
                                 device=self.device, dtype=torch.float32)
         elif tuple(noise.shape) != shape:
             raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
         noise = noise.to(device=self.device, dtype=torch.float32)
         pixels = x.permute(0, 3, 1, 2).contiguous()
-        out, restored = self._get_restore_fn(h, w)(pixels, noise)
+        out, restored = self._get_restore_fn(h, w)(pixels, noise, generator,
+                                                   step_noise)
         return out.permute(0, 2, 3, 1), restored.permute(0, 2, 3, 1)
 
     def restore_image(self, cond_pixel, noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      step_noise: Optional[torch.Tensor] = None
                       ) -> Tuple[np.ndarray, torch.Tensor]:
         """As :meth:`restore_image_device`, with the restored image fetched
         to the host as a (B, H, W, 3) numpy array; the HFRM output stays on
         the device."""
         out, restored = self.restore_image_device(cond_pixel, noise,
-                                                  generator)
+                                                  generator, step_noise)
         return out.cpu().numpy(), restored
+
+    def restore(self, samples: Iterable[Tuple[np.ndarray, str]],
+                save_dir: Optional[str] = None,
+                generator: Optional[torch.Generator] = None,
+                eval_batch: int = 1) -> Dict[str, float]:
+        """Score (pair (H, W, 6) [cond | gt] in [0,1], image_id) samples;
+        returns the mean ``psnr_torch``, ``psnr_y``, ``psnr_np_y``,
+        ``ssim`` and ``n_images``.
+
+        Runs of up to ``eval_batch`` same-geometry pairs restore as one
+        batch (a change of geometry flushes the batch), each drawing its
+        x_T from ``generator`` (default: seeded with ``training.seed``).
+        Metrics are per image, on the host in float64.  With ``save_dir``
+        each image writes ``{id}_output.png``, ``{id}_cond.png`` and
+        ``{id}_gt.png`` there.  Single process: multi-GPU reduction is
+        ROADMAP item 13."""
+        from wavedm_tpu_torch.utils import metrics as M
+        from wavedm_tpu_torch.utils.images import save_image
+
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.cfg.training.seed)
+        psnr_t, psnr_y, psnr_n, ssims = [], [], [], []
+
+        def flush(batch):
+            if not batch:
+                return
+            pairs = np.stack([p for p, _ in batch])
+            out, _ = self.restore_image(pairs[..., :3], generator=generator)
+            for k, (pair, img_id) in enumerate(batch):
+                cond, gt = pair[..., :3], pair[..., 3:]
+                out0 = out[k]
+                gt255 = np.clip(gt * 255, 0, 255)
+                out255 = np.clip(out0 * 255, 0, 255)
+                psnr_t.append(M.psnr_torch(gt, out0))
+                psnr_y.append(M.psnr_y(gt, out0))
+                psnr_n.append(M.psnr_np(gt255, out255, test_y_channel=True))
+                ssims.append(M.ssim(gt255, out255))
+                if save_dir is not None:
+                    save_image(out0, f"{save_dir}/{img_id}_output.png")
+                    save_image(cond, f"{save_dir}/{img_id}_cond.png")
+                    save_image(gt, f"{save_dir}/{img_id}_gt.png")
+
+        buf = []
+        for pair, img_id in samples:
+            if buf and pair.shape != buf[0][0].shape:
+                flush(buf)
+                buf = []
+            buf.append((pair, img_id))
+            if len(buf) == max(1, eval_batch):
+                flush(buf)
+                buf = []
+        flush(buf)
+        n = max(len(psnr_t), 1)
+        return {
+            "psnr_torch": float(np.sum(psnr_t) / n),
+            "psnr_y": float(np.sum(psnr_y) / n),
+            "psnr_np_y": float(np.sum(psnr_n) / n),
+            "ssim": float(np.sum(ssims) / n),
+            "n_images": len(psnr_t),
+        }
