@@ -51,6 +51,24 @@ Phases, each printing one JSON line with its elapsed seconds:
                     production profile (bfloat16, a frozen random HFRM, 16
                     crops); loss, gradient, EMA, launch counts and a
                     save/resume round trip are checked
+  train_data        stage 2 on the RainDrop test pairs (standing in for the
+                    289 MB train split, which a copy of the repository made
+                    for a GPU machine may leave out), the
+                    production profile with ``fused_resblock``: 6 steps
+                    streamed from the PNG files and 6 through the device
+                    crop cache (first batches equal to the byte), in-train
+                    validation once; ms/step, data wait, peak memory,
+                    launch counts
+  train_hfrm        one small HFRM train step on the card against the CPU;
+                    then HFRMTrainer at full width on the 8 test pairs
+                    (whole 720x480 images, batch 8) for 6 steps in float32,
+                    bfloat16 over float32 parameters, and bfloat16 with
+                    ``hfrm.remat``: ms/step, peak memory, the parameters
+                    outside the residual blocks moved, ``lastest`` written
+  pipeline          cli.train_hfrm (2 steps) -> its ``lastest`` as
+                    ``--hfrm-ckpt`` to cli.train_diffusion (2 steps) -> that
+                    checkpoint to cli.eval_diffusion over 2 pairs; the
+                    served HFRM holds the stage-1 file's weights
 
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -82,6 +100,7 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
 TRAIN_STEPS = 5
+HFRM_PARAMS = 15_941_667   # HFRM at full width: dim 32, 2,2,2,4 / 6 / 2,2,2,2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
 
@@ -1153,6 +1172,411 @@ def train_profile(name, cfg, n_crops, hfrm_sd):
     return counts
 
 
+def smoke_data_dir():
+    """A ``data.data_dir`` whose RainDrop ``train`` and ``raindrop_test``
+    splits both link to the repository's 8 test pairs, so that no phase
+    reads the 289 MB train split, which a copy of the repository made for
+    a GPU machine may leave out."""
+    root = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "raindrop"))
+    test = os.path.join(ROOT, "data", "raindrop", "raindrop_test")
+    for split in ("train", "raindrop_test"):
+        os.symlink(test, os.path.join(root, "raindrop", split))
+    return root
+
+
+def timed_steps(step_fn, marks, step_ms, outs=None):
+    """``step_fn`` with the card synchronized after each call: its time
+    into ``step_ms``, the host clock at its end into ``marks``, its result
+    into ``outs``."""
+    import torch
+
+    def step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        step_ms.append((marks[-1] - t) * 1e3)
+        if outs is not None:
+            outs.append(out)
+        return out
+    return step
+
+
+def timed_batches(it, waits):
+    """The items of ``it``, with the host time spent waiting for each
+    appended to ``waits``."""
+    it = iter(it)
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        waits.append(time.perf_counter() - t)
+        yield item
+
+
+DATA_STEPS = 6
+
+
+def train_data_phase(launches):
+    """Stage 2 on real RainDrop pairs in the production profile (bfloat16
+    compute, float32 parameters, ``fused_resblock``, a frozen random
+    HFRM, 2 x 8 crops of 256x256): 6 steps streamed from the PNG files,
+    then 6 from a fresh trainer through the device cache; the first batch
+    of each path equal to the byte.  ``training.validation_freq`` is 3 and
+    the streamed run validates once, at step 3 (two test pairs restored
+    with the training UNet).  Times steps 2-6: wall per step (validation
+    taken out), the card's step alone, and the host's wait for a batch."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.cli.train_diffusion import make_validate
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.data.raindrop import RainDrop
+    from wavedm_tpu_torch.inference.loader import build_hfrm
+    from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+
+    build = os.path.join(ROOT, "wavedm_tpu_torch", "_build")
+    val_dir = os.path.join(build, "smoke_val")
+    cfg = production_profile()
+    cfg.parallel.fused_resblock = True
+    cfg.data.data_dir = smoke_data_dir()
+    cfg.training.validation_freq = 3
+    cfg.validate()
+    hfrm_sd = build_hfrm(cfg, None, "cuda").state_dict()
+    n_crops = cfg.training.batch_size * cfg.training.patch_n
+    chain = len(range(0, cfg.sampling.t_start, max(
+        1, cfg.sampling.t_start // cfg.sampling.sampling_timesteps)))
+    m = cfg.model      # two fused sites a ResnetBlock: 44 at full width
+    sites = 2 * (len(m.ch_mult) * (2 * m.num_res_blocks + 1) + 2)
+    firsts = {}
+    try:
+        for path in ("streamed", "device_cache"):
+            cfg.data.device_cache = path == "device_cache"
+            dataset = RainDrop(cfg, device="cuda")
+            t = time.perf_counter()
+            first = next(dataset.train_batches(0, prefetch=False))
+            torch.cuda.synchronize()
+            first_batch_s = time.perf_counter() - t   # the cache's build
+            firsts[path] = (first.cpu().numpy() if torch.is_tensor(first)
+                            else first)
+            p = cfg.data.patch_size
+            assert firsts[path].shape == (n_crops, p, p, 6)
+            trainer = DiffusionTrainer(cfg, hfrm_state_dict=hfrm_sd,
+                                       device="cuda", log_fn=lambda m: None)
+            marks, step_ms, waits, val_s, val_out = [], [], [], [], []
+            metrics = []
+            trainer.train_step = timed_steps(trainer.train_step, marks,
+                                             step_ms, metrics)
+            validate = make_validate(trainer, dataset, None, val_dir)
+
+            def once(state, step, validate=validate):
+                if step != 3:
+                    return
+                t = time.perf_counter()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    validate(state, step)
+                torch.cuda.synchronize()
+                val_s.append(time.perf_counter() - t)
+                val_out.append(buf.getvalue().strip())
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            trainer.fit(lambda epoch: timed_batches(
+                dataset.train_batches(epoch), waits), max_steps=DATA_STEPS,
+                validate_fn=once if path == "streamed" else None)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            assert trainer.state.step == DATA_STEPS
+            restores = 2 if path == "streamed" else 0    # eval_batch 1
+            want = {"fused_gn_swish_conv_bf16":
+                    sites * (DATA_STEPS + chain * restores),
+                    "wavelet_dec": 3 * DATA_STEPS + 2 * restores}
+            if restores:
+                want["wavelet_rec"] = restores
+            got = {k: v for k, v in counts.items() if v}
+            assert got == want, (path, got, want)
+            for key, val in got.items():
+                launches[key] += val
+            loss = float(metrics[-1].loss)
+            assert np.isfinite(loss), loss
+            wall_ms = ((marks[DATA_STEPS - 1] - marks[0]) - sum(val_s)) \
+                * 1e3 / (DATA_STEPS - 1)
+            fields = {}
+            if val_out:
+                psnr, ssim = re.search(r"psnr (\S+) ssim (\S+)",
+                                       val_out[0]).groups()
+                assert np.isfinite(float(psnr)) and np.isfinite(float(ssim))
+                dumps = os.listdir(os.path.join(val_dir, "step3"))
+                assert len(dumps) == 6, dumps
+                fields = dict(validation=val_out[0], validation_s=val_s[0],
+                              validation_dumps=len(dumps))
+            emit("train_data", path=path, profile="production",
+                 dtype="bfloat16", fused_resblock=True, crops=n_crops,
+                 steps=DATA_STEPS,
+                 first_batch_s_cache_build_included=first_batch_s,
+                 first_step_ms=step_ms[0],
+                 ms_per_step=wall_ms,
+                 step_ms=sum(step_ms[1:]) / (DATA_STEPS - 1),
+                 data_ms=sum(waits[1:DATA_STEPS]) * 1e3 / (DATA_STEPS - 1),
+                 peak_bytes=peak, loss=loss, launches=got,
+                 group_norm_launches=sum(v for k, v in got.items()
+                                         if k.startswith("group_norm")),
+                 **fields)
+            del trainer, dataset
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(val_dir, ignore_errors=True)
+    assert np.array_equal(firsts["streamed"], firsts["device_cache"])
+    emit("train_data", first_batches_equal=True,
+         batch_shape=list(firsts["streamed"].shape))
+
+
+HFRM_STEPS = 6
+
+
+def hfrm_step_on(device, weights=None):
+    """One HFRMTrainer step of a small HFRM (float32) from random weights
+    with nonzero residual scales; returns the loss, the PSNR, the
+    gradients and the weights it started from."""
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import config_from_dict
+    from wavedm_tpu_torch.inference.loader import init_random_
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    cfg = config_from_dict({"hfrm": {"dim": 16, "enc_blk_nums": [1, 1],
+                                     "middle_blk_num": 1,
+                                     "dec_blk_nums": [1, 1]}})
+    trainer = HFRMTrainer(cfg, device=device, log_fn=lambda s: None)
+    if weights is None:
+        init_random_(trainer.model,
+                     torch.Generator(device=device).manual_seed(SEED))
+        with torch.no_grad():
+            for name, p in trainer.model.named_parameters():
+                if name.endswith(("beta", "gamma")):
+                    p.fill_(0.5)
+        weights = {k: v.cpu().clone()
+                   for k, v in trainer.model.state_dict().items()}
+    trainer.model.load_state_dict(weights)
+    batch = np.random.default_rng(SEED).random((2, 64, 96, 6),
+                                               dtype=np.float32)
+    loss, psnr = trainer.train_step(batch)
+    grads = {k: p.grad.cpu() for k, p in trainer.model.named_parameters()}
+    return float(loss), float(psnr), grads, weights
+
+
+def train_hfrm_phase():
+    """Stage-1 training: first one step of a small HFRM on the card against
+    the CPU (float32: loss, PSNR and every gradient), then HFRMTrainer.fit
+    at full width (15,941,667 parameters, identity-centre start) on the 8
+    RainDrop test pairs, whole 720x480 images in one batch of 8, for 6
+    steps in float32 (TF32 off), in bfloat16 over float32 parameters, and
+    in bfloat16 with ``hfrm.remat``: ms/step over steps 2-6, peak memory,
+    a finite loss, every parameter outside the residual blocks moved (the
+    blocks' get zero gradient from the identity-centre start), ``lastest``
+    written."""
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile, reference_profile
+    from wavedm_tpu_torch.data.raindrop import RainDrop
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    l_cpu, p_cpu, g_cpu, weights = hfrm_step_on("cpu")
+    l_gpu, p_gpu, g_gpu, _ = hfrm_step_on("cuda", weights)
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    psnr_err = abs(p_gpu - p_cpu) / abs(p_cpu)
+    grad_err = max(float((g_gpu[k] - g).abs().max() / g.abs().max())
+                   for k, g in g_cpu.items())
+    assert max(loss_err, psnr_err) <= 1e-5 and grad_err <= 1e-4, (
+        loss_err, psnr_err, grad_err)
+    emit("train_hfrm", check="small step, card vs CPU (float32)",
+         loss_rel_err=loss_err, psnr_rel_err=psnr_err,
+         grad_rel_err=grad_err, tol_rel=dict(loss=1e-5, psnr=1e-5,
+                                             grad=1e-4))
+
+    cfg = reference_profile()
+    cfg.data.data_dir = smoke_data_dir()
+    pairs = np.stack([p for p, _ in RainDrop(cfg).eval_samples()])
+    assert pairs.shape[0] == 8, pairs.shape
+    batch = torch.from_numpy(pairs).cuda()
+    ckpt_root = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_hfrm")
+    variants = (("float32", reference_profile(), False),
+                ("bfloat16", production_profile(), False),
+                ("bfloat16_remat", production_profile(), True))
+    try:
+        for name, vcfg, remat in variants:
+            vcfg.hfrm.remat = remat
+            trainer = HFRMTrainer(vcfg, device="cuda", log_fn=lambda m: None)
+            n_params = sum(p.numel() for p in trainer.model.parameters())
+            assert n_params == HFRM_PARAMS, n_params
+            p0 = {k: p.detach().clone()
+                  for k, p in trainer.model.named_parameters()}
+            marks, step_ms = [], []
+            trainer.train_step = timed_steps(trainer.train_step, marks,
+                                             step_ms)
+            ckpt_dir = os.path.join(ckpt_root, name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            history = trainer.fit(lambda epoch: iter([batch] * HFRM_STEPS),
+                                  max_steps=HFRM_STEPS, ckpt_dir=ckpt_dir)
+            peak = torch.cuda.max_memory_allocated()
+            assert [h[0] for h in history] == list(range(1, HFRM_STEPS + 1))
+            loss, psnr = history[-1][1], history[-1][2]
+            assert np.isfinite(loss) and np.isfinite(psnr), (loss, psnr)
+            # from the identity-centre start each block's SimpleGate
+            # multiplies by channels the init leaves at zero: the blocks'
+            # parameters get exactly zero gradient (in the JAX package
+            # too) and only the 16 tensors outside them train
+            moved, dead = [], []
+            for k, p in trainer.model.named_parameters():
+                if k.startswith(("encoders", "mid_blks", "decoders")):
+                    assert torch.equal(p.detach(), p0[k]), k
+                    assert not p.grad.any(), k
+                    dead.append(p.numel())
+                else:
+                    assert not torch.equal(p.detach(), p0[k]), \
+                        f"{name}: {k} did not move"
+                    moved.append(p.numel())
+            lastest = os.path.join(ckpt_dir, "lastest.pth.tar")
+            assert os.path.exists(lastest), lastest
+            emit("train_hfrm", variant=name, params=n_params,
+                 batch=list(batch.shape), steps=HFRM_STEPS,
+                 compute_dtype=vcfg.parallel.compute_dtype, remat=remat,
+                 first_step_ms=step_ms[0],
+                 ms_per_step=(marks[-1] - marks[0]) * 1e3 / (HFRM_STEPS - 1),
+                 peak_bytes=peak, loss=loss, psnr=psnr,
+                 losses=[h[1] for h in history],
+                 tensors_moved=len(moved), params_moved=sum(moved),
+                 block_tensors_zero_grad=len(dead),
+                 block_params_zero_grad=sum(dead),
+                 lastest_bytes=os.path.getsize(lastest))
+            del trainer, p0
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    del batch
+    torch.cuda.empty_cache()
+
+
+def pipeline_phase(launches):
+    """Both stages and the scoring as a user chains them, in process, on
+    the RainDrop test pairs standing in for the train split: 2 steps of
+    ``cli.train_hfrm`` (full width, bfloat16 over float32 parameters);
+    its ``lastest`` file as ``--hfrm-ckpt`` to 2 steps of
+    ``cli.train_diffusion`` (production profile, ``fused_resblock``); that
+    checkpoint to ``cli.eval_diffusion --resume`` over 2 pairs
+    (``fused_groupnorm``).  Each exits 0; each training run's and the
+    eval's launches are counted and checked; the metrics are finite; the
+    restorer's HFRM holds the stage-1 file's weights."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.cli import eval_diffusion, train_diffusion, \
+        train_hfrm
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.inference import loader
+
+    data = ["--set", f"data.data_dir={smoke_data_dir()}"]
+    root = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    hfrm_ckpt = os.path.join(root, "hfrm", "lastest.pth.tar")
+    unet_ckpt = os.path.join(root, "ddpm", "RainDrop_epoch1_ddpm.pth.tar")
+    built = []
+    real_build = loader.build_restorer
+
+    def keep(*args, **kwargs):
+        built.append(real_build(*args, **kwargs))
+        return built[-1]
+
+    common = ["--config", "production", "--device", "cuda"] + data
+    prod = production_profile()
+    prod_steps = len(range(0, prod.sampling.t_start, max(
+        1, prod.sampling.t_start // prod.sampling.sampling_timesteps)))
+    m = prod.model
+    sites = 2 * (len(m.ch_mult) * (2 * m.num_res_blocks + 1) + 2)
+    norms = gn_sites(prod, 1)       # 45 with swish and 6 without
+    swish = sum(v for k, v in norms.items() if k[3])
+    runs = (
+        ("train_hfrm", train_hfrm.main, common + [
+            "--max-steps", "2", "--ckpt-dir", os.path.dirname(hfrm_ckpt)],
+         {}),
+        ("train_diffusion", train_diffusion.main, common + [
+            "--set", "parallel.fused_resblock=true",
+            "--set", "training.snapshot_freq=2", "--max-steps", "2",
+            "--hfrm-ckpt", hfrm_ckpt,
+            "--ckpt-dir", os.path.dirname(unet_ckpt)],
+         {"fused_gn_swish_conv_bf16": sites * 2, "wavelet_dec": 3 * 2}),
+        ("eval_diffusion", eval_diffusion.main, common + [
+            "--set", "parallel.fused_groupnorm=true", "--resume", unet_ckpt,
+            "--hfrm-ckpt", hfrm_ckpt, "--n-images", "2",
+            "--eval-batch", "2"],
+         {"group_norm_bf16_swish": swish * prod_steps,
+          "group_norm_bf16": (sum(norms.values()) - swish) * prod_steps,
+          "wavelet_dec": 2,
+          "wavelet_rec": 1}))
+    out = {}
+    loader.build_restorer = keep
+    try:
+        for name, main, argv, want in runs:
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                assert main(argv) == 0, name
+            torch.cuda.synchronize()
+            got = {k: v for k, v in read_counts().items() if v}
+            assert got == want, (name, got, want)
+            for key, val in got.items():
+                launches[key] += val
+            out[name] = dict(s=time.perf_counter() - t,
+                             stdout=buf.getvalue().splitlines()[-5:])
+            torch.cuda.empty_cache()
+        metrics = {}
+        for line in out["eval_diffusion"]["stdout"]:
+            for label in ("psnr all torch", "psnr all np", "psnr all GPU",
+                          "ssim all"):
+                if line.startswith(label + " "):
+                    metrics[label] = float(line[len(label) + 1:])
+        assert len(metrics) == 4 and all(np.isfinite(v)
+                                         for v in metrics.values()), metrics
+        assert "(2 images)" in out["eval_diffusion"]["stdout"][-1]
+        (rest,) = built
+        saved = torch.load(hfrm_ckpt, map_location="cpu",
+                           weights_only=True)["state_dict"]
+        served = rest.hfrm.state_dict()
+        assert served.keys() == saved.keys()
+        for k, v in saved.items():
+            assert torch.equal(served[k].cpu(), v.to(served[k].dtype)), k
+        emit("pipeline", stages=list(out), seconds={k: v["s"]
+                                                      for k, v in out.items()},
+             metrics=metrics, hfrm_weights_served_equal_stage1_file=True,
+             note="random start, 2 steps each: the metrics are not a "
+             "quality number",
+             stdout={k: v["stdout"][-1] for k, v in out.items()})
+    finally:
+        loader.build_restorer = real_build
+        shutil.rmtree(root, ignore_errors=True)
+    del built
+    torch.cuda.empty_cache()
+
+
 def gn_sweep(cfg, n_patches):
     """The GroupNorm kernel under each launch plan at every flagship site
     shape, swish on (the chosen plan also with swish off): the share of its
@@ -1200,14 +1624,22 @@ def partial(phases, ref_cfg, prod_cfg):
     """Only the named phases (``--phases``), for comparing trees in one
     call: ``kernels`` (the DWT/IWT and GroupNorm kernels against their plain
     versions, timed), ``restore`` (the production restore through
-    ``fused_groupnorm``: a first run, then five timed runs) and ``sweep``
-    (the GroupNorm kernel under each launch plan, :func:`gn_sweep`)."""
+    ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
+    (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), and
+    the training phases ``train_data``, ``train_hfrm`` and ``pipeline``."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
         for name, row in check_kernels(ref_cfg, N_IMAGES * 45).items():
             emit("kernels", kernel=name, per="call (wavelet) or UNet "
                  "forward at N = 90 (GroupNorm)", **row)
+    scratch = dict.fromkeys(read_counts(), 0)
+    if "train_data" in phases:
+        train_data_phase(scratch)
+    if "train_hfrm" in phases:
+        train_hfrm_phase()
+    if "pipeline" in phases:
+        pipeline_phase(scratch)
     if "restore" in phases:
         from wavedm_tpu_torch.inference.loader import build_restorer
 
@@ -1232,7 +1664,8 @@ def main(argv=None):
                     "directory (a checkout of another commit) instead of the "
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
-                    "kernels,restore,sweep to run alone; no final lines")
+                    "kernels,restore,sweep,train_data,train_hfrm,pipeline to "
+                    "run alone; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -1401,6 +1834,14 @@ def main(argv=None):
         for key, val in counts.items():
             launches[key] += val
     del hfrm_train
+    torch.cuda.empty_cache()
+
+    # both stages on real pairs, then chained as a user runs them
+    train_data_phase(launches)
+    train_hfrm_phase()
+    pipeline_phase(launches)
+    shutil.rmtree(os.path.join(ROOT, "wavedm_tpu_torch", "_build",
+                               "smoke_data"), ignore_errors=True)
 
     for key, val in launches.items():
         assert val > 0, f"kernel {key} never ran on the main path"

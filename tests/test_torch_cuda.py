@@ -402,3 +402,60 @@ def test_train_step_matches_cpu(cuda):
     for k in sd_cpu:
         err = float((sd_gpu[k] - sd_cpu[k]).abs().max())
         assert err <= 1e-4 * float(sd_cpu[k].abs().max()), k
+
+
+def test_device_cache_on_the_card_equals_the_cpu(cuda):
+    from wavedm_tpu_torch.data.device_cache import DeviceCropCache, to_unit
+
+    # uint8 / 255 correctly rounded on the card too, as numpy divides
+    x = torch.arange(256, dtype=torch.uint8)
+    assert torch.equal(to_unit(x.to(cuda)).cpu(),
+                       torch.from_numpy(x.numpy().astype(np.float32) / 255.0))
+
+    rng = np.random.default_rng(3)
+    pairs = rng.integers(0, 256, (4, 480, 720, 6), dtype=np.uint8)
+    order = rng.permutation(4)
+    caches = [DeviceCropCache(pairs, 256, dev) for dev in ("cpu", cuda)]
+    coords = np.concatenate(list(caches[0].draw_coords(order, 61, 2, 8)))
+    want = caches[0].crop_batch(coords)
+    got = caches[1].crop_batch(coords)
+    assert got.device.type == "cuda" and got.shape == (32, 256, 256, 6)
+    assert torch.equal(got.cpu(), want)
+
+
+def hfrm_step_on(device, weights=None):
+    """One HFRMTrainer step of a small HFRM (float32) from random weights
+    with nonzero residual scales; returns the loss, the PSNR, the
+    gradients and the weights it started from."""
+    from wavedm_tpu_torch.config import config_from_dict
+    from wavedm_tpu_torch.inference.loader import init_random_
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    cfg = config_from_dict({"hfrm": {"dim": 16, "enc_blk_nums": [1, 1],
+                                     "middle_blk_num": 1,
+                                     "dec_blk_nums": [1, 1]}})
+    trainer = HFRMTrainer(cfg, device=device, log_fn=lambda s: None)
+    if weights is None:
+        init_random_(trainer.model, torch.Generator(device=device)
+                     .manual_seed(0))
+        with torch.no_grad():
+            for name, p in trainer.model.named_parameters():
+                if name.endswith(("beta", "gamma")):
+                    p.fill_(0.5)
+        weights = {k: v.cpu().clone()
+                   for k, v in trainer.model.state_dict().items()}
+    trainer.model.load_state_dict(weights)
+    batch = np.random.default_rng(1).random((2, 64, 96, 6), dtype=np.float32)
+    loss, psnr = trainer.train_step(batch)
+    grads = {k: p.grad.cpu() for k, p in trainer.model.named_parameters()}
+    return float(loss), float(psnr), grads, weights
+
+
+def test_hfrm_train_step_matches_cpu(cuda):
+    l_cpu, p_cpu, g_cpu, weights = hfrm_step_on("cpu")
+    l_gpu, p_gpu, g_gpu, _ = hfrm_step_on(cuda, weights)
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(p_gpu - p_cpu) <= 1e-5 * abs(p_cpu)
+    for k, g in g_cpu.items():
+        err = float((g_gpu[k] - g).abs().max())
+        assert err <= 1e-4 * max(float(g.abs().max()), 1e-30), k

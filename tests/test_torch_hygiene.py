@@ -89,6 +89,32 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         assert eval_diffusion.main(tiny + [
             "--smoke", "--n-images", "1",
             "--set", "data.data_dir=" + os.path.join(tmp, "none")]) == 0
+        # both training CLIs on a RainDrop tree: HFRM streamed, then stage
+        # 2 through the device cache with validation and that HFRM file
+        from wavedm_tpu_torch.cli import train_diffusion, train_hfrm
+        rng = np.random.default_rng(0)
+        data = os.path.join(tmp, "data")
+        for split in ("train", "raindrop_test"):
+            for folder in ("input", "gt"):
+                for i in range(2):
+                    path = os.path.join(data, "raindrop", split, folder,
+                                        f"{{i}}.png")
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    write_png(path, rng.integers(0, 256, (32, 48, 3),
+                                                 dtype=np.uint8))
+        data_set = ["--set", "data.data_dir=" + data]
+        assert train_hfrm.main(tiny + data_set + [
+            "--set", "hfrm.batch_size=2", "--max-steps", "1",
+            "--ckpt-dir", os.path.join(tmp, "hfrm")]) == 0
+        assert train_diffusion.main(tiny + data_set + [
+            "--set", "data.device_cache=true", "--set", "training.patch_n=2",
+            "--set", "training.validation_freq=1", "--set",
+            "sampling.grid_r=8", "--max-steps", "1",
+            "--hfrm-ckpt", os.path.join(tmp, "hfrm", "lastest.pth.tar"),
+            "--ckpt-dir", os.path.join(tmp, "ckpts"),
+            "--val-folder", os.path.join(tmp, "val")]) == 0
+        assert os.path.exists(os.path.join(tmp, "val", "step1",
+                                           "0_output.png"))
         import shutil
         shutil.rmtree(tmp)
         loaded = [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]

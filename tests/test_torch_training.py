@@ -30,6 +30,7 @@ by float noise, on both sides alike:
 
 import copy
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +64,7 @@ from wavedm_tpu_torch.training.train_step import (make_train_step,
 from wavedm_tpu_torch.training.trainer import DiffusionTrainer
 from wavedm_tpu_torch.utils.convert import (hfrm_state_dict_from_flax,
                                             unet_state_dict_from_flax)
+from wavedm_tpu_torch.utils.images import write_png
 
 # tests/test_train_step.py's tiny_config at width 64, with a small HFRM
 RAW = {
@@ -462,8 +464,10 @@ def test_cli_smoke(tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "loaded checkpoint" in out and "done at step 3" in out
-    with pytest.raises(NotImplementedError, match="RainDrop"):
-        cli.main(["--config", str(path), "--device", "cpu"])
+    # without --smoke it reads the RainDrop train split of data.data_dir
+    with pytest.raises(FileNotFoundError, match="raindrop"):
+        cli.main(["--config", str(path), "--device", "cpu", "--set",
+                  f"data.data_dir={tmp_path / 'none'}"])
 
 
 def test_smoke_batches_assemble_crops_as_the_jax_script():
@@ -475,3 +479,103 @@ def test_smoke_batches_assemble_crops_as_the_jax_script():
     assert 0.0 <= min(b.min() for b in batches) <= max(
         b.max() for b in batches) <= 1.0
     assert dataclasses.asdict(cfg)["training"]["patch_n"] == 8
+
+
+# ------------------------------------------------- validation, RainDrop CLI
+
+
+def _fake_steps(trainer, metrics):
+    """Replace a trainer's step by one that only counts."""
+    def step(state, batch):
+        if hasattr(state, "replace"):             # JAX's immutable state
+            return state.replace(step=state.step + 1), metrics
+        state.step += 1
+        return metrics
+    return step
+
+
+def test_validate_fn_fires_where_jax_fit_calls_it(monkeypatch):
+    """Validation every 3 steps and snapshots every 4 over 10 steps of two
+    epochs: the same hook calls at the same steps as JAX's fit, each before
+    that step's snapshot."""
+    from wavedm_tpu.training import trainer as jax_trainer
+    from wavedm_tpu_torch.training.train_step import StepMetrics
+
+    raw = _raw(training={"validation_freq": 3, "snapshot_freq": 4})
+    jcfg, cfg = _configs(raw)
+    runs = []
+    one = torch.tensor(1.0)
+    for cls, kw, cfg_ in (
+            (jax_trainer.DiffusionTrainer, dict(use_mesh=False), jcfg),
+            (DiffusionTrainer, dict(device="cpu"), cfg)):
+        events = []
+        monkeypatch.setattr(cls, "save", lambda self, path, events=events:
+                            events.append(("save", int(self.state.step))))
+        trainer = cls(cfg_, **kw, log_fn=lambda s: None)
+        trainer.train_step = _fake_steps(trainer, StepMetrics(one, one, one,
+                                                              one))
+        trainer.fit(lambda epoch: iter([None] * 6), max_steps=10,
+                    ckpt_dir="unused",
+                    validate_fn=lambda state, step, events=events:
+                    events.append(("validate", step)))
+        runs.append(events)
+    assert runs[0] == runs[1]
+    assert [s for kind, s in runs[1] if kind == "validate"] == [3, 6, 9]
+
+
+def _write_raindrop(root, n_train=3, n_test=2):
+    rng = np.random.default_rng(0)
+    for split, n in (("train", n_train), ("raindrop_test", n_test)):
+        for i in range(n):
+            for folder, name in (("input", f"{i}_rain.png"),
+                                 ("gt", f"{i}_clean.png")):
+                path = root / "raindrop" / split / folder / name
+                path.parent.mkdir(parents=True, exist_ok=True)
+                write_png(str(path), rng.integers(0, 256, (64, 96, 3),
+                                                  dtype=np.uint8))
+
+
+def test_cli_trains_on_raindrop_and_validates(tmp_path, capsys):
+    """The real-data path over a tmp RainDrop tree, with the frozen HFRM
+    from a stage-1 checkpoint: validation at step 2 restores two test
+    pairs and dumps them; the streamed and device-cache paths train to
+    the same weights.  Without HFRM weights validation is skipped."""
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    _write_raindrop(tmp_path)
+    raw = _raw(model={"use_gt_in_train": False},
+               data={"data_dir": str(tmp_path)},
+               training={"patch_n": 2, "batch_size": 1,
+                         "validation_freq": 2, "snapshot_freq": 2},
+               sampling={"sampling_timesteps": 2, "grid_r": 8})
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    _, cfg = _configs(raw)
+    hfrm_ckpt = HFRMTrainer(cfg, device="cpu", log_fn=lambda s: None).save(
+        str(tmp_path), "lastest")
+    sds = []
+    for cache in ("false", "true"):
+        ckpts, val = tmp_path / f"ckpts_{cache}", tmp_path / f"val_{cache}"
+        assert cli.main(["--config", str(path), "--device", "cpu",
+                         "--max-steps", "2", "--hfrm-ckpt", hfrm_ckpt,
+                         "--ckpt-dir", str(ckpts), "--val-folder", str(val),
+                         "--set", f"data.device_cache={cache}"]) == 0
+        out = capsys.readouterr().out
+        assert "[validate @ 2] psnr" in out and "done at step 2" in out
+        assert sorted(os.listdir(val / "step2")) == sorted(
+            f"{i}_rain_{k}.png" for i in range(2)
+            for k in ("output", "cond", "gt"))
+        sds.append(torch.load(ckpts / "RainDrop_epoch1_ddpm.pth.tar",
+                              map_location="cpu", weights_only=True))
+    for key in ("state_dict", "ema_helper"):
+        assert all(torch.equal(v, sds[1][key][k])
+                   for k, v in sds[0][key].items())
+
+    ref = _raw(data={"data_dir": str(tmp_path)},
+               training={"patch_n": 2, "validation_freq": 1})
+    path.write_text(yaml.safe_dump(ref))
+    assert cli.main(["--config", str(path), "--device", "cpu",
+                     "--max-steps", "1", "--ckpt-dir",
+                     str(tmp_path / "ref")]) == 0
+    assert "[validate @ 1] skipped: no HFRM checkpoint" in \
+        capsys.readouterr().out

@@ -3,19 +3,25 @@
 The port's counterpart of ``scripts/train_diffusion.py``:
 
   python -m wavedm_tpu_torch.cli.train_diffusion \\
-      --config wavedm_tpu/configs/raindrop_wavelet.yaml --smoke
+      --config wavedm_tpu/configs/raindrop_wavelet_production.yaml \\
+      --hfrm-ckpt saved_models/hfrm/lastest.pth.tar
   python -m wavedm_tpu_torch.cli.train_diffusion --config ... --smoke \\
       --set model.ch=32 --set model.ch_mult=[1,2] --max-steps 2 --device cpu
 
-``--smoke`` trains on synthetic crops assembled as the JAX script does.
-The RainDrop data path is not ported (its decoder needs PIL, which the
-card's machine lacks) and raises.  Runs on the card unless ``--device``
-names another.
+Without ``--smoke`` it trains on random crops of
+``<data_dir>/raindrop/train`` (``data.device_cache`` keeps the decoded split
+on the card) and every ``training.validation_freq`` steps restores two
+pairs of ``<data_dir>/raindrop/raindrop_test`` with the UNet's current
+(not EMA) weights, printing PSNR and SSIM and dumping the images under
+``<val-folder>/step<N>``; validation needs HFRM weights and is skipped
+without them.  ``--smoke`` trains on synthetic crops assembled as the JAX
+script does.  Runs on the card unless ``--device`` names another.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 from typing import Callable, Iterator, Optional
 
@@ -23,7 +29,7 @@ import numpy as np
 
 from wavedm_tpu_torch.config import Config
 
-__all__ = ["smoke_batches", "main"]
+__all__ = ["smoke_batches", "make_validate", "main"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,6 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--val-folder", default=os.path.join("results", "images"),
+                   help="In-train validation dumps go to <dir>/step<N>")
     return p.parse_args(argv)
 
 
@@ -78,6 +86,44 @@ def smoke_batches(cfg: Config, n_crops: Optional[int] = None,
     return batches
 
 
+VAL_PAIRS = 2      # eval pairs restored by each in-train validation
+
+
+def make_validate(trainer, dataset, hfrm_weights,
+                  val_folder: str) -> Callable:
+    """validate_fn for :meth:`DiffusionTrainer.fit`: restore the first
+    ``VAL_PAIRS`` eval pairs of ``dataset`` with the training UNet's current
+    weights through one ``DiffusiveRestoration`` kept across calls, print
+    PSNR and SSIM, dump the images under ``<val_folder>/step<N>``.  Skips
+    when there are no HFRM weights (``hfrm_weights`` None and no frozen
+    HFRM in the trainer)."""
+    from wavedm_tpu_torch.inference.loader import build_hfrm
+    from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
+
+    box = {}
+
+    def validate(state, step: int) -> None:
+        if trainer.hfrm is None and hfrm_weights is None:
+            print(f"[validate @ {step}] skipped: no HFRM checkpoint")
+            return
+        if "r" not in box:
+            hfrm = (trainer.hfrm if trainer.hfrm is not None else
+                    build_hfrm(trainer.cfg, hfrm_weights, trainer.device))
+            box["r"] = DiffusiveRestoration(trainer.cfg, state.model, hfrm,
+                                            device=trainer.device)
+        state.model.eval()
+        try:
+            res = box["r"].restore(
+                itertools.islice(dataset.eval_samples(), VAL_PAIRS),
+                save_dir=os.path.join(val_folder, f"step{step}"))
+        finally:
+            state.model.train()
+        print(f"[validate @ {step}] psnr {res['psnr_torch']:.3f} "
+              f"ssim {res['ssim']:.4f}")
+
+    return validate
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     from wavedm_tpu_torch.config import load_config
@@ -87,9 +133,9 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, args.overrides)
     if args.seed is not None:
         cfg.training.seed = args.seed
-    trainer = DiffusionTrainer(
-        cfg, hfrm_state_dict=args.hfrm_ckpt or cfg.hfrm.ckpt_path or None,
-        device=args.device)
+    hfrm_weights = args.hfrm_ckpt or cfg.hfrm.ckpt_path or None
+    trainer = DiffusionTrainer(cfg, hfrm_state_dict=hfrm_weights,
+                               device=args.device)
     ckpt_dir = args.ckpt_dir or (
         None if args.smoke else os.path.join(cfg.data.data_dir, "ckpts"))
     if args.resume == "auto":
@@ -101,13 +147,19 @@ def main(argv=None) -> int:
     elif args.resume:
         trainer.resume(args.resume)
 
-    if not args.smoke:
-        raise NotImplementedError(
-            "the RainDrop data path is not ported (its decoder needs PIL; "
-            "ROADMAP 'Left out'): use --smoke")
-    trainer.fit(smoke_batches(cfg), max_steps=args.max_steps or 20,
-                ckpt_dir=ckpt_dir)
-    print("smoke training done at step", trainer.state.step)
+    if args.smoke:
+        trainer.fit(smoke_batches(cfg), max_steps=args.max_steps or 20,
+                    ckpt_dir=ckpt_dir)
+        print("smoke training done at step", trainer.state.step)
+        return 0
+    from wavedm_tpu_torch.data.raindrop import RainDrop
+
+    dataset = RainDrop(cfg, device=trainer.device)
+    trainer.fit(dataset.train_batches, max_steps=args.max_steps or None,
+                ckpt_dir=ckpt_dir,
+                validate_fn=make_validate(trainer, dataset, hfrm_weights,
+                                          args.val_folder))
+    print("training done at step", trainer.state.step)
     return 0
 
 

@@ -1,26 +1,40 @@
-"""RainDrop evaluation pairs, read without PIL.
+"""The RainDrop dataset, read without PIL: training crops and eval pairs.
 
-The evaluation side of ``wavedm_tpu/data/raindrop.py``: the test split
-lives in ``<data_dir>/raindrop/raindrop_test/{input,gt}/``; a ground-truth
-name is its input's name with "rain" replaced by "clean".  Each pair is
-read as PNG (``utils/images.read_png``) and brought to the canonical eval
-geometry (720x480, capped at 1024, rounded up to /16) by
-``resize_lanczos`` where it is not there already.  The training side
-(random crops, the native loader, the device cache) is not ported
-(ROADMAP item 17), and neither is the multi-process split (item 13).
+The port of ``wavedm_tpu/data/raindrop.py``.  The splits live in
+``<data_dir>/raindrop/{train,raindrop_test}/{input,gt}/``; a ground-truth
+name is its input's name with "rain" replaced by "clean".  Images are read
+as PNG (``utils/images.read_png``).
+
+- Train: each sample draws ``patch_n`` random P x P crops from one pair,
+  from a generator seeded with (seed, epoch, index), ys before xs, and
+  returns them as (patch_n, P, P, 6) float32 [input | gt] in [0, 1];
+  :meth:`RainDrop.train_batches` stacks ``batch_size`` samples, streamed
+  through a depth-2 thread prefetcher or gathered on the device from the
+  decoded split (``data.device_cache``, ``data/device_cache.py``).  Both
+  give the same batches, equal to the JAX package's PIL path.
+- Eval: each pair at the canonical eval geometry (720x480, capped at 1024,
+  rounded up to /16), ``resize_lanczos``-resized where it is not there.
+- Each process takes every ``process_count``-th index from
+  ``process_index``; one process runs today (multi-GPU is ROADMAP item
+  13).  The epoch number is folded into the shuffle seed.
+
+The JAX package's native C++ decoder is not ported: its crop stream
+differs from the PIL path's by design, and this path follows the PIL one.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, List, Tuple
+import queue
+import threading
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.utils.images import read_png, resize_lanczos
 
-__all__ = ["eval_resize_dims", "fit_image", "RainDrop"]
+__all__ = ["eval_resize_dims", "fit_image", "RainDropDataset", "RainDrop"]
 
 
 def _list_pairs(root: str) -> Tuple[List[str], List[str]]:
@@ -63,17 +77,154 @@ def _eval_sample(inp: str, gt: str) -> Tuple[np.ndarray, str]:
                           axis=-1), img_id
 
 
-class RainDrop:
-    """The RainDrop test split of ``cfg.data.data_dir``."""
+class RainDropDataset:
+    """One split's samples for one process."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, root: str, patch_size: int, patch_n: int,
+                 parse_patches: bool = True, process_index: int = 0,
+                 process_count: int = 1):
+        self.inputs, self.gts = _list_pairs(root)
+        self.patch_size = patch_size
+        self.patch_n = patch_n
+        self.parse_patches = parse_patches
+        self.indices = list(range(process_index, len(self.inputs),
+                                  process_count))
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def _train_sample(self, idx: int, rng: np.random.Generator) -> np.ndarray:
+        inp, gt = read_png(self.inputs[idx]), read_png(self.gts[idx])
+        h, w = inp.shape[:2]
+        p = self.patch_size
+        ys = rng.integers(0, max(1, h - p + 1), self.patch_n)
+        xs = rng.integers(0, max(1, w - p + 1), self.patch_n)
+        crops = np.empty((self.patch_n, p, p, 6), dtype=np.uint8)
+        for k, (y, x) in enumerate(zip(ys, xs)):
+            crops[k, ..., :3] = inp[y:y + p, x:x + p]
+            crops[k, ..., 3:] = gt[y:y + p, x:x + p]
+        return crops.astype(np.float32) / 255.0
+
+    def _eval_sample(self, idx: int) -> Tuple[np.ndarray, str]:
+        return _eval_sample(self.inputs[idx], self.gts[idx])
+
+    def epoch(self, epoch: int, seed: int, shuffle: bool = True) -> Iterator:
+        """This process's samples for one epoch, shuffled by
+        ``default_rng(seed + epoch)``: crops in train mode, (pair, id) in
+        eval mode."""
+        order = np.array(self.indices)
+        if shuffle:
+            np.random.default_rng(seed + epoch).shuffle(order)
+        for idx in order:
+            if self.parse_patches:
+                rng = np.random.default_rng((seed, epoch, int(idx)))
+                yield self._train_sample(int(idx), rng)
+            else:
+                yield self._eval_sample(int(idx))
+
+
+class _Prefetcher:
+    """A depth-``depth`` queue filled by one thread, so decoding overlaps
+    the device's step.  An exception in the thread is raised again in the
+    consumer, after the items queued before it."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.error: Optional[BaseException] = None
+
+        def worker():
+            try:
+                for item in it:
+                    self.q.put(item)
+            except BaseException as e:    # handed to the consumer
+                self.error = e
+            finally:
+                self.q.put(self._DONE)
+
+        self.thread = threading.Thread(target=worker, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is self._DONE:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield item
+
+
+class RainDrop:
+    """The RainDrop splits of ``cfg.data.data_dir`` for one process.
+
+    ``device`` is where the ``data.device_cache`` split lives (the card
+    when None); the streamed path yields host arrays."""
+
+    def __init__(self, cfg: Config, process_index: int = 0,
+                 process_count: int = 1, device=None):
         self.cfg = cfg
+        self.process_index = process_index
+        self.process_count = process_count
+        self.device = device
+        self._cache = None       # DeviceCropCache, built on first use
+
+    def train_dir(self) -> str:
+        return os.path.join(self.cfg.data.data_dir, "raindrop", "train")
 
     def test_dir(self) -> str:
         return os.path.join(self.cfg.data.data_dir, "raindrop",
                             "raindrop_test")
 
+    def train_batches(self, epoch: int, batch_size: Optional[int] = None,
+                      prefetch: bool = True) -> Iterator:
+        """(batch * patch_n, P, P, 6) float32 crop batches in [0, 1] for
+        one epoch: numpy arrays, or tensors on the device with
+        ``data.device_cache``.  A last partial batch is dropped."""
+        cfg = self.cfg
+        if cfg.data.global_attn:
+            raise NotImplementedError(
+                "global_attn training crops (the whole-image tensor) are "
+                "not ported: ROADMAP item 15")
+        ds = RainDropDataset(self.train_dir(), cfg.data.patch_size,
+                             cfg.training.patch_n,
+                             process_index=self.process_index,
+                             process_count=self.process_count)
+        bs = batch_size or cfg.training.batch_size
+        seed = cfg.training.seed
+        if cfg.data.device_cache:
+            from wavedm_tpu_torch.data.device_cache import build_pair_cache
+
+            if self._cache is None:
+                self._cache = build_pair_cache(ds.inputs, ds.gts,
+                                               cfg.data.patch_size,
+                                               self.device)
+            order = np.array(ds.indices)
+            np.random.default_rng(seed + epoch).shuffle(order)
+            buf = []
+            for coords in self._cache.draw_coords(order, seed, epoch,
+                                                  cfg.training.patch_n):
+                buf.append(coords)
+                if len(buf) == bs:
+                    yield self._cache.crop_batch(np.concatenate(buf))
+                    buf = []
+            return
+        it = ds.epoch(epoch, seed)
+        if prefetch:
+            it = iter(_Prefetcher(it))
+        buf = []
+        for crops in it:
+            buf.append(crops)
+            if len(buf) == bs:
+                yield np.concatenate(buf, axis=0)
+                buf = []
+
     def eval_samples(self) -> Iterator[Tuple[np.ndarray, str]]:
-        """((H, W, 6) pair, image_id) for each test pair, in name order."""
-        for inp, gt in zip(*_list_pairs(self.test_dir())):
-            yield _eval_sample(inp, gt)
+        """((H, W, 6) pair, image_id) for each test pair of this process,
+        in name order."""
+        ds = RainDropDataset(self.test_dir(), self.cfg.data.patch_size,
+                             self.cfg.training.patch_n, parse_patches=False,
+                             process_index=self.process_index,
+                             process_count=self.process_count)
+        yield from ds.epoch(0, 0, shuffle=False)

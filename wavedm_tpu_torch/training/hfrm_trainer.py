@@ -1,0 +1,174 @@
+"""Stage-1 HFRM trainer.
+
+The port of ``wavedm_tpu/training/hfrm_trainer.py``: HFRM from the config
+with float32 parameters run in ``parallel.compute_dtype``, started from
+the identity-centre init; Adam(betas (0.5, 0.999), eps 1e-8) at
+lr * 0.5**(step / 1e5), the first update at the base rate; the loss
+2 * mean|fake * 255 - gt * 255| (+ ``tv_loss`` when ``hfrm.tv_weight`` >
+0); per-image PSNR on clipped outputs; a ``best`` checkpoint when an
+epoch's mean PSNR beats the running best (from ``hfrm.best_psnr_init``)
+and ``lastest`` (the reference's spelling) every 5th epoch, at the last
+epoch and at ``max_steps``.  The perceptual and GAN terms need the VGG and
+PatchGAN models, which are not ported (ROADMAP item 16).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from wavedm_tpu_torch.config import Config
+from wavedm_tpu_torch.inference.loader import resolve_device
+from wavedm_tpu_torch.models.hfrm import HFRM, identity_center_init_
+from wavedm_tpu_torch.training.state import TrainState
+from wavedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from wavedm_tpu_torch.utils.profiling import MetricsLogger, StepTimer
+
+__all__ = ["tv_loss", "hfrm_lr", "image_psnr", "HFRMTrainer"]
+
+
+def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """Total-variation regulariser of (B, C, H, W) ``x`` (the reference's
+    TVLoss)."""
+    b, c, h, w = x.shape
+    h_tv = torch.sum(torch.square(x[:, :, 1:] - x[:, :, :-1]))
+    w_tv = torch.sum(torch.square(x[:, :, :, 1:] - x[:, :, :, :-1]))
+    count_h = (h - 1) * w * c
+    count_w = h * (w - 1) * c
+    return weight * 2.0 * (h_tv / count_h + w_tv / count_w) / b
+
+
+def hfrm_lr(base_lr: float, step: int) -> float:
+    """The learning rate of update ``step`` (0 for the first):
+    base_lr * 0.5**(step / 1e5)."""
+    return base_lr * 0.5 ** (step / 100000.0)
+
+
+def image_psnr(fake: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """(B,) PSNR of each image on [0, 1], both clipped first."""
+    diff = fake.clamp(0, 1) - gt.clamp(0, 1)
+    rmse = torch.sqrt(torch.mean(diff * diff, dim=(1, 2, 3)))
+    return 20.0 * torch.log10(1.0 / rmse)
+
+
+class HFRMTrainer:
+    """Owns HFRM, its Adam state and the step; the caller supplies
+    (B, H, W, 6) [cond | gt] batches in [0, 1].  Runs on the card unless
+    ``device`` names another."""
+
+    def __init__(self, cfg: Config, device=None,
+                 log_fn: Callable[[str], None] = print):
+        for name in ("use_perceptual", "use_gan"):
+            if getattr(cfg.hfrm, name):
+                raise NotImplementedError(
+                    f"hfrm.{name}: the VGG and PatchGAN models it needs are "
+                    "not ported (ROADMAP item 16)")
+        self.cfg = cfg
+        self.log = log_fn
+        self.device = resolve_device(device)
+        with torch.device("meta"):
+            model = HFRM.from_config(cfg, keep_f32_params=True)
+        self.model = identity_center_init_(
+            model.to_empty(device=self.device)).train()
+        n_params = sum(p.numel() for p in self.model.parameters())
+        self.log(f"Total_params_model: {n_params / 1e6}M")
+        self.state = TrainState(
+            model=self.model,
+            optimizer=torch.optim.Adam(self.model.parameters(),
+                                       lr=cfg.hfrm.lr, betas=(0.5, 0.999),
+                                       eps=1e-8),
+            ema={}, step=0,
+            generator=torch.Generator(device=self.device).manual_seed(
+                cfg.training.seed))
+        self.best_psnr = cfg.hfrm.best_psnr_init
+        self.epoch = 0
+
+    def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One update on ``batch`` (array or tensor); returns the loss and
+        the batch-mean PSNR as device scalars."""
+        x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
+        x = x.permute(0, 3, 1, 2)
+        cond, gt = x[:, :3].contiguous(), x[:, 3:].contiguous()
+        opt = self.state.optimizer
+        for group in opt.param_groups:
+            group["lr"] = hfrm_lr(self.cfg.hfrm.lr, self.state.step)
+        opt.zero_grad(set_to_none=True)
+        fake = self.model(cond)
+        loss = 2.0 * torch.mean(torch.abs(fake * 255.0 - gt * 255.0))
+        if self.cfg.hfrm.tv_weight > 0.0:
+            loss = loss + tv_loss(fake, self.cfg.hfrm.tv_weight)
+        loss.backward()
+        opt.step()
+        self.state.step += 1
+        return loss.detach(), image_psnr(fake.detach(), gt).mean()
+
+    # ------------------------------------------------------------------ ckpt
+
+    def save(self, ckpt_dir: str, name: str) -> str:
+        """Write ``<ckpt_dir>/<name>.pth.tar``; returns its path."""
+        return save_checkpoint(os.path.join(ckpt_dir, name), self.state,
+                               self.cfg, epoch=self.epoch,
+                               extra={"best_psnr": float(self.best_psnr)})
+
+    def resume(self, path: str) -> None:
+        meta = load_checkpoint(path, self.state, self.cfg)
+        self.epoch = int(meta["epoch"])
+        self.best_psnr = float(meta.get("best_psnr",
+                                        self.cfg.hfrm.best_psnr_init))
+
+    # ------------------------------------------------------------------ train
+
+    def fit(self, batch_iter_fn: Callable[[int], Iterable],
+            max_steps: Optional[int] = None,
+            ckpt_dir: Optional[str] = None,
+            metrics_path: Optional[str] = None
+            ) -> List[Tuple[int, float, float]]:
+        """Run epochs until ``hfrm.n_epochs`` or ``max_steps``; returns
+        (step, loss, psnr) of each step taken.
+
+        batch_iter_fn(epoch) -> (B, H, W, 6) batches.  After each epoch
+        ``best`` is written when its mean PSNR beats ``best_psnr``, and
+        ``lastest`` every 5th epoch and at the last one; ``lastest`` also
+        at ``max_steps``.  A resumed run already at ``max_steps`` takes no
+        step (the JAX trainer takes one more)."""
+        cfg = self.cfg
+        history: List[Tuple[int, float, float]] = []
+        if max_steps is not None and self.state.step >= max_steps:
+            return history
+        timer = StepTimer()
+        mlog = MetricsLogger(metrics_path) if metrics_path else None
+        for epoch in range(self.epoch, cfg.hfrm.n_epochs):
+            self.epoch = epoch
+            epoch_psnr = []
+            for batch in batch_iter_fn(epoch):
+                timer.start()
+                loss, psnr = self.train_step(batch)
+                timer.stop(sync_on=psnr)
+                step = self.state.step
+                history.append((step, float(loss), float(psnr)))
+                epoch_psnr.append(history[-1][2])
+                if step % 100 == 0:
+                    self.log(f"[Epoch {epoch}] step {step} G loss: "
+                             f"{history[-1][1]:.4f} PSNR: "
+                             f"{history[-1][2]:.3f} step time: "
+                             f"{timer.mean:.3f}s")
+                    if mlog is not None:
+                        mlog.log(step, loss=history[-1][1],
+                                 psnr=history[-1][2], step_time=timer.mean)
+                if max_steps is not None and step >= max_steps:
+                    if ckpt_dir:
+                        self.save(ckpt_dir, "lastest")
+                    return history
+            mean_psnr = float(np.mean(epoch_psnr)) if epoch_psnr else 0.0
+            self.log(f"epoch PSNR: {mean_psnr:.4f}, "
+                     f"best psnr: {self.best_psnr:.4f}")
+            if ckpt_dir:
+                if mean_psnr > self.best_psnr:
+                    self.best_psnr = mean_psnr
+                    self.save(ckpt_dir, "best")
+                if epoch % 5 == 4 or epoch == cfg.hfrm.n_epochs - 1:
+                    self.save(ckpt_dir, "lastest")
+        return history

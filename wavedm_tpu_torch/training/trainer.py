@@ -1,9 +1,9 @@
 """Diffusion trainer: the epoch/step loop around the train step.
 
 The port of ``wavedm_tpu/training/trainer.py`` for the wavelet domain: the
-loop feeds batches, logs every 10 steps, and checkpoints every
-``training.snapshot_freq`` steps (and after step 1).  In-train validation
-(``validate_fn``) is not ported yet.
+loop feeds batches, logs every 10 steps, calls the in-train validation hook
+every ``training.validation_freq`` steps, and checkpoints every
+``training.snapshot_freq`` steps (and after step 1).  Single process.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.inference.loader import (Weights, build_hfrm,
                                                build_unet, resolve_device)
-from wavedm_tpu_torch.training.state import create_train_state
+from wavedm_tpu_torch.training.state import TrainState, create_train_state
 from wavedm_tpu_torch.training.train_step import check_domain, make_train_step
 from wavedm_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                prune_checkpoints,
@@ -86,7 +86,9 @@ class DiffusionTrainer:
     def fit(self, batch_iter_fn: Callable[[int], Iterable[np.ndarray]],
             max_steps: Optional[int] = None,
             ckpt_dir: Optional[str] = None,
-            metrics_path: Optional[str] = None) -> List[TrainLogEntry]:
+            metrics_path: Optional[str] = None,
+            validate_fn: Optional[Callable[[TrainState, int], None]] = None
+            ) -> List[TrainLogEntry]:
         """Run epochs until ``training.n_epochs``, ``training.n_iters``
         global steps, or ``max_steps``.
 
@@ -97,7 +99,9 @@ class DiffusionTrainer:
 
         batch_iter_fn(epoch) -> iterable of (B, P, P, 6) float32 batches in
         [0, 1].  metrics_path: optional JSONL file that receives each
-        logged step's metrics."""
+        logged step's metrics.  validate_fn(state, step): the in-train
+        validation hook, called after each step that is a multiple of
+        ``training.validation_freq``, before that step's snapshot."""
         cfg = self.cfg
         history: List[TrainLogEntry] = []
         stop_at = (min(max_steps, cfg.training.n_iters)
@@ -137,6 +141,9 @@ class DiffusionTrainer:
                                  grad_norm=float(m.grad_norm),
                                  step_time=entry.step_time,
                                  data_time=entry.data_time)
+                if (validate_fn is not None
+                        and step % cfg.training.validation_freq == 0):
+                    validate_fn(self.state, step)
                 if ckpt_dir and (step % cfg.training.snapshot_freq == 0
                                  or step == 1):
                     self.save(os.path.join(

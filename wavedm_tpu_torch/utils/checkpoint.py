@@ -5,7 +5,10 @@ A file holds the reference's keys where it has them (``state_dict``,
 ``utils/convert.py:load_torch_checkpoint`` and ``build_unet`` read the model
 or its EMA shadow from it, plus the generator's state and the
 ``training.pred_type`` the weights were trained with; :func:`load_checkpoint`
-refuses a file whose ``pred_type`` differs from the config's.  Orbax
+refuses a file whose ``pred_type`` differs from the config's.  A trainer
+adds scalars of its own through ``extra`` (the stage-1 trainer: its
+``best_psnr``; it keeps no EMA, so its ``ema_helper`` is empty), and
+``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  Orbax
 checkpoints of the JAX package are not read here (ROADMAP item 9).
 """
 
@@ -27,10 +30,14 @@ __all__ = ["SUFFIX", "save_checkpoint", "load_checkpoint",
 SUFFIX = ".pth.tar"
 
 
+_TENSORS = ("state_dict", "optimizer", "ema_helper", "generator")
+
+
 def save_checkpoint(path: str, state: TrainState, cfg: Config,
-                    epoch: int = 0) -> str:
-    """Write ``state`` to ``path`` (``SUFFIX`` appended if missing) through
-    a temporary file, so a cut write leaves no partial checkpoint."""
+                    epoch: int = 0, extra: Optional[Dict] = None) -> str:
+    """Write ``state`` and the ``extra`` scalars to ``path`` (``SUFFIX``
+    appended if missing) through a temporary file, so a cut write leaves
+    no partial checkpoint."""
     if not path.endswith(SUFFIX):
         path += SUFFIX
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -43,6 +50,7 @@ def save_checkpoint(path: str, state: TrainState, cfg: Config,
         "generator": state.generator.get_state(),
         "pred_type": cfg.training.pred_type,
         "config": dataclasses.asdict(cfg),
+        **(extra or {}),
     }
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
@@ -52,7 +60,8 @@ def save_checkpoint(path: str, state: TrainState, cfg: Config,
 
 def load_checkpoint(path: str, state: TrainState, cfg: Config) -> Dict:
     """Restore ``state`` in place from ``path``; returns the file's
-    metadata (``step``, ``epoch``, ``pred_type``, ``config``)."""
+    metadata (``step``, ``epoch``, ``pred_type``, ``config`` and the
+    ``extra`` scalars it was saved with)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     saved = obj.get("pred_type")
     if saved != cfg.training.pred_type:
@@ -66,7 +75,7 @@ def load_checkpoint(path: str, state: TrainState, cfg: Config) -> Dict:
             state.ema[name].copy_(value)
     state.step = int(obj["step"])
     state.generator.set_state(obj["generator"])
-    return {k: obj[k] for k in ("step", "epoch", "pred_type", "config")}
+    return {k: v for k, v in obj.items() if k not in _TENSORS}
 
 
 def _snapshots(ckpt_dir: str):

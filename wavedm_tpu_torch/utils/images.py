@@ -1,5 +1,5 @@
 """Image I/O without PIL: a PNG reader and writer on ``zlib``/``struct`` and
-numpy, PIL's LANCZOS resample in numpy, and the dump helpers of
+numpy, PIL's LANCZOS and BILINEAR resamples in numpy, and the dump helpers of
 ``wavedm_tpu/utils/images.py``.
 
 ``read_png`` takes 8-bit, non-interlaced PNGs of colour type 0 (grey),
@@ -11,11 +11,12 @@ Palette images, other bit depths, Adam7 interlacing and other formats
 raise ``ValueError`` naming the file and the field.  ``write_png`` writes
 an RGB image as one IDAT with filter 0 (None) or 2 (Up) on every row.
 
-``resize_lanczos`` is PIL's ``Image.resize(size, Image.LANCZOS)`` on a
-uint8 image: a support-3 Lanczos window widened by the scale when
-shrinking, coefficients normalized per output pixel and rounded to 22-bit
-fixed point, the horizontal pass first, each pass rounding and clipping
-to uint8.
+``resize_lanczos`` and ``resize_bilinear`` are PIL's ``Image.resize``
+with ``Image.LANCZOS`` and ``Image.BILINEAR`` on a uint8 image: a
+support-3 Lanczos window or the support-1 triangle, widened by the scale
+when shrinking, coefficients normalized per output pixel and rounded to
+22-bit fixed point, the horizontal pass first, each pass rounding and
+clipping to uint8.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 __all__ = ["to_uint8", "save_image", "make_grid", "read_png", "write_png",
-           "resize_lanczos"]
+           "resize_lanczos", "resize_bilinear"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}            # colour type -> samples a pixel
@@ -193,7 +194,7 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> None:
                 + _chunk(b"IEND", b""))
 
 
-# --------------------------------------------------------------- LANCZOS
+# ------------------------------------------------------------- resampling
 
 def _sinc(x: float) -> float:
     if x == 0.0:
@@ -208,13 +209,24 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-def _lanczos_coeffs(in_size: int, out_size: int
-                    ) -> Tuple[np.ndarray, np.ndarray]:
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# PIL's filters: (function, support at scale 1)
+LANCZOS = (_lanczos, 3.0)
+BILINEAR = (_triangle, 1.0)
+
+
+def _coeffs(in_size: int, out_size: int, resample
+            ) -> Tuple[np.ndarray, np.ndarray]:
     """(out_size, ksize) source indices and int64 22-bit coefficients of
     one resample pass, computed in double as PIL's precompute_coeffs."""
+    fn, base_support = resample
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     index = np.zeros((out_size, ksize), np.int64)
@@ -224,7 +236,7 @@ def _lanczos_coeffs(in_size: int, out_size: int
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for v in k:
             ww += v
@@ -236,9 +248,10 @@ def _lanczos_coeffs(in_size: int, out_size: int
     return index, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   resample) -> np.ndarray:
     """One uint8 pass along ``axis`` (0: rows, 1: columns) of (H, W, C)."""
-    index, kk = _lanczos_coeffs(img.shape[axis], out_size)
+    index, kk = _coeffs(img.shape[axis], out_size, resample)
     src = img.astype(np.int64)
     shape = [1, 1, 1]
     shape[axis] = out_size
@@ -249,14 +262,25 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _resize(img: np.ndarray, size: Tuple[int, int], resample,
+            name: str) -> np.ndarray:
+    if img.dtype != np.uint8 or img.ndim != 3:
+        raise ValueError(f"{name} takes an (H, W, C) uint8 image")
+    w, h = size
+    if img.shape[1] != w:
+        img = _resample_axis(img, w, 1, resample)
+    if img.shape[0] != h:
+        img = _resample_axis(img, h, 0, resample)
+    return img
+
+
 def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """(H, W, C) uint8 -> (h, w, C) uint8 for ``size`` = (w, h), as PIL's
     ``Image.resize(size, Image.LANCZOS)``."""
-    if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError("resize_lanczos takes an (H, W, C) uint8 image")
-    w, h = size
-    if img.shape[1] != w:
-        img = _resample_axis(img, w, axis=1)
-    if img.shape[0] != h:
-        img = _resample_axis(img, h, axis=0)
-    return img
+    return _resize(img, size, LANCZOS, "resize_lanczos")
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(H, W, C) uint8 -> (h, w, C) uint8 for ``size`` = (w, h), as PIL's
+    ``Image.resize(size, Image.BILINEAR)``."""
+    return _resize(img, size, BILINEAR, "resize_bilinear")
