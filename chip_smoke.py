@@ -43,6 +43,15 @@ Phases, each printing one JSON line with its elapsed seconds:
                     ``cli/eval_diffusion`` and ``cli/restore`` entry points
                     run in-process over them; metrics (random weights: not
                     a quality number), dumps read back
+  serve             the production profile at batch 8: every kernel against
+                    its plain version at the served shapes (8 images,
+                    N = 360 patches); restore_image_device
+                    on 8 images through ``fused_groupnorm`` and
+                    ``fused_resblock``; then a RestorationServer on
+                    127.0.0.1 answers 16 concurrent 720x480 PNG requests in
+                    2 batches (each reply within one uint8 level of a direct
+                    restore of the same batch), a lone request and a bad
+                    one; latency, host decode/encode ms, peak memory
   train_parity      one train step of a small UNet on the card against the
                     same step on the CPU
   train             DiffusionTrainer.fit at flagship width with
@@ -263,8 +272,11 @@ def gn_plan(gn, n, c, hw, dtype):
     return dict(plan._asdict(), kind=plan.kind)
 
 
-def check_kernels(cfg, n_patches):
-    """Each kernel against its plain version at the main path's shapes."""
+def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
+                  phase="kernels"):
+    """Each kernel against its plain version at the main path's shapes:
+    the DWT/IWT on ``n_images`` 720x480 images, GroupNorm in the dtypes
+    ``tags`` at every site of a UNet forward over ``n_patches`` patches."""
     import torch
     import torch.nn.functional as F
 
@@ -277,7 +289,8 @@ def check_kernels(cfg, n_patches):
     rows = {}
 
     # DWT on the pixel batch in [-1, 1]; IWT on its output
-    x = torch.rand(N_IMAGES, 3, HEIGHT, WIDTH, device=dev, generator=gen) * 2 - 1
+    x = torch.rand(n_images, 3, HEIGHT, WIDTH, device=dev,
+                   generator=gen) * 2 - 1
     z = wv.wavelet_dec_cuda(x)
     z_plain = wv.wavelet_dec_plain(x)
     back = wv.wavelet_rec_cuda(z)
@@ -312,7 +325,7 @@ def check_kernels(cfg, n_patches):
         bound_ms=bound_ms(z, back),
         library_ms=time_ms(
             lambda: F.conv_transpose2d(z_lib, bank, stride=4, groups=3)))
-    emit("kernels", kernel="wavelet", shape=list(x.shape),
+    emit(phase, kernel="wavelet", shape=list(x.shape),
          dec_err=dec_err, rec_err=rec_err, roundtrip_err=rt_err, tol=tol)
 
     # GroupNorm(+swish) at every distinct flagship site shape, f32 and bf16,
@@ -325,6 +338,8 @@ def check_kernels(cfg, n_patches):
     shapes = sorted({key[:3] for key in sites})
     for dtype, tag, atol, rtol in ((torch.float32, "f32", 2e-5, 2e-5),
                                    (torch.bfloat16, "bf16", 1e-6, 2.0 ** -6)):
+        if tag not in tags:
+            continue
         for swish in (True, False):
             name = f"{tag}_swish" if swish else tag
             row = dict(source="wavedm_tpu_torch/csrc/groupnorm.cu",
@@ -345,7 +360,7 @@ def check_kernels(cfg, n_patches):
                 assert excess <= atol, (name, c, h, w, excess)
                 row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
                 if not count:
-                    emit("kernels", kernel=f"group_norm_{name}",
+                    emit(phase, kernel=f"group_norm_{name}",
                          shape=[n_patches, c, h, w], count_per_forward=0,
                          max_abs_err=float(diff.max()))
                     continue
@@ -363,7 +378,7 @@ def check_kernels(cfg, n_patches):
                                                            1e-6, swish))
                 l_ms = time_ms(lib)
                 b_ms = bound_ms(xs, y)
-                emit("kernels", kernel=f"group_norm_{name}",
+                emit(phase, kernel=f"group_norm_{name}",
                      shape=[n_patches, c, h, w], count_per_forward=count,
                      max_abs_err=float(diff.max()), ms=k_ms, device_ms=d_ms,
                      plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
@@ -419,6 +434,73 @@ def _fused_inputs(gen, n, cin, h, w, cout, dtype):
     return x, sg, bg, wk, b
 
 
+def fused_at(gen, sites, n, dtype, tag, tol, row, key="", iters=10,
+             phase="kernels", timed=True):
+    """The fused kernel at every site of ``sites`` at batch ``n`` against
+    its plain version (``tol`` of the output scale; worst errors into
+    ``row``), and, when ``timed``, its times summed over one UNet forward
+    into ``row`` under names ending in ``key``: the wrapper, the card's
+    own, the plain version, the library call and the bound.  Returns the
+    split-K plan of each site."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    plans = {}
+    for (cin, h, w, cout), count in sorted(sites.items()):
+        x, sg, bg, wk, b = _fused_inputs(gen, n, cin, h, w, cout, dtype)
+        bd = b.to(dtype)
+        plans[(cin, h, cout)] = fr.split_k(n * h * w, cout, cin, sms)
+        out = fr.fused_gn_swish_conv(x, sg, bg, wk, b, dtype)
+        ref = fr.fused_gn_swish_conv_plain(x, sg, bg, wk, b, dtype)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        assert rel <= tol, (tag, n, cin, h, cout, err, rel)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        del out, ref
+        if not timed:
+            emit(phase, kernel=f"fused_gn_swish_conv_{tag}",
+                 shape=[n, cin, h, w, cout], count_per_forward=count,
+                 max_abs_err=err, max_rel_err=rel, tol_rel=tol)
+            continue
+
+        def lib():
+            y = F.silu(F.group_norm(x.float(), 32, sg, bg, 1e-6))
+            return F.conv2d(y.to(dtype), wk, bd, padding=1)
+
+        k_ms = time_ms(lambda: fr.fused_gn_swish_conv(
+            x, sg, bg, wk, b, dtype), iters, 1)
+        d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
+            t, sg, bg, wk, b, dtype), x, iters, 1)
+        p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
+            x, sg, bg, wk, b, dtype), iters, 1)
+        l_ms = time_ms(lib, iters, 1)
+        out_bytes = n * cout * h * w * x.element_size()
+        b_ms = (bound_ms(x, sg, bg, wk, b) + out_bytes / MEM_BW * 1e3)
+        o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
+        emit(phase, kernel=f"fused_gn_swish_conv_{tag}",
+             shape=[n, cin, h, w, cout], count_per_forward=count,
+             max_rel_err=rel, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+             library_ms=l_ms, bytes_ms=b_ms, ops_ms=o_ms,
+             tflops=2.0 * n * h * w * 9 * cin * cout / k_ms / 1e9)
+        for name, val in (("ms", k_ms), ("device_ms", d_ms),
+                          ("plain_ms", p_ms), ("library_ms", l_ms),
+                          ("bytes_ms", b_ms), ("ops_ms", o_ms)):
+            tot[name] += count * val          # per UNet forward
+    if timed:
+        tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+        assert tot["ops_ms"] >= tot["bytes_ms"]
+        for name, val in tot.items():
+            row[name + key] = val
+    return plans
+
+
 def check_fused_kernels(cfg):
     """The fused GN -> swish -> conv3x3 kernel at every flagship site shape
     against its plain version (N = 2), its gradients at two shapes, and
@@ -426,7 +508,6 @@ def check_fused_kernels(cfg):
     (production training) beside the plain version, the library call and
     the operations bound."""
     import torch
-    import torch.nn.functional as F
 
     from wavedm_tpu_torch.ops import fused_resblock as fr
 
@@ -460,50 +541,9 @@ def check_fused_kernels(cfg):
         # partials and the reduce pass at every site, while at N = 90 all
         # but the 8x8 sites store straight from the main loop's epilogue
         # and at N = 16 the 8x8 sites split again
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         for n, key in ((90, ""), (16, "_n16")):
-            tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
-                                 "bound_ms", "bytes_ms", "ops_ms"), 0.0)
             iters = 3 if (tag, n) == ("f32", 90) else 10
-            plans = {}
-            for (cin, h, w, cout), count in sorted(sites.items()):
-                x, sg, bg, wk, b = _fused_inputs(gen, n, cin, h, w, cout,
-                                                 dtype)
-                bd = b.to(dtype)
-                plans[(cin, h, cout)] = fr.split_k(n * h * w, cout, cin, sms)
-                out = fr.fused_gn_swish_conv(x, sg, bg, wk, b, dtype)
-                ref = fr.fused_gn_swish_conv_plain(x, sg, bg, wk, b, dtype)
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                rel = err / float(ref.float().abs().max())
-                assert rel <= tol, (tag, n, cin, h, cout, err, rel)
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                row["max_rel_err"] = max(row["max_rel_err"], rel)
-                del out, ref
-
-                def lib():
-                    y = F.silu(F.group_norm(x.float(), 32, sg, bg, 1e-6))
-                    return F.conv2d(y.to(dtype), wk, bd, padding=1)
-
-                k_ms = time_ms(lambda: fr.fused_gn_swish_conv(
-                    x, sg, bg, wk, b, dtype), iters, 1)
-                d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
-                    t, sg, bg, wk, b, dtype), x, iters, 1)
-                p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
-                    x, sg, bg, wk, b, dtype), iters, 1)
-                l_ms = time_ms(lib, iters, 1)
-                out_bytes = n * cout * h * w * x.element_size()
-                b_ms = (bound_ms(x, sg, bg, wk, b) + out_bytes / MEM_BW * 1e3)
-                o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
-                emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
-                     shape=[n, cin, h, w, cout], count_per_forward=count,
-                     ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
-                     bytes_ms=b_ms, ops_ms=o_ms,
-                     tflops=2.0 * n * h * w * 9 * cin * cout / k_ms / 1e9)
-                for name, val in (("ms", k_ms), ("device_ms", d_ms),
-                                  ("plain_ms", p_ms), ("library_ms", l_ms),
-                                  ("bytes_ms", b_ms), ("ops_ms", o_ms)):
-                    tot[name] += count * val          # per UNet forward
+            plans = fused_at(gen, sites, n, dtype, tag, tol, row, key, iters)
             if n == 90:
                 assert all(s == 1 for (_, h, _), s in plans.items()
                            if h > 8), plans
@@ -513,10 +553,6 @@ def check_fused_kernels(cfg):
             emit("kernels", kernel=f"fused_gn_swish_conv_{tag}", n=n,
                  split_k={f"{c}x{h}x{h}->{co}": s
                           for (c, h, co), s in sorted(plans.items())})
-            tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
-            assert tot["ops_ms"] >= tot["bytes_ms"]
-            for name, val in tot.items():
-                row[name + key] = val
         rows[f"fused_gn_swish_conv_{tag}"] = row
         emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
              per="UNet forward at N = 90 (and _n16: N = 16)",
@@ -579,15 +615,15 @@ def check_fused_kernels(cfg):
     return rows
 
 
-def synthetic_images(seed):
-    """Rain-degraded-looking (B, H, W, 3) images in [0, 1]: a smooth colour
-    field with bright, blurred drops and sensor noise, from numpy."""
+def synthetic_images(seed, n=N_IMAGES):
+    """``n`` rain-degraded-looking (n, H, W, 3) images in [0, 1]: a smooth
+    colour field with bright, blurred drops and sensor noise, from numpy."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH] / max(HEIGHT, WIDTH)
     imgs = []
-    for _ in range(N_IMAGES):
+    for _ in range(n):
         img = np.zeros((HEIGHT, WIDTH, 3))
         for c in range(3):
             f, p = rng.uniform(1, 6, 2), rng.uniform(0, 2 * np.pi, 2)
@@ -630,10 +666,10 @@ def restore_timed(rest, images):
     return out, hfrm_out, (time.perf_counter() - t) * 1e3
 
 
-def check_output(out):
+def check_output(out, n=N_IMAGES):
     import torch
 
-    assert tuple(out.shape) == (N_IMAGES, HEIGHT, WIDTH, 3), out.shape
+    assert tuple(out.shape) == (n, HEIGHT, WIDTH, 3), out.shape
     assert bool(torch.isfinite(out).all())
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
@@ -910,6 +946,294 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
     emit("sampler", chain="whole_image", fused_resblock_vs_fused_groupnorm=
          fr_diff, tol_bf16_vs_f32_gap=whole_gap)
     torch.cuda.empty_cache()
+
+
+SERVE_BATCH, SERVE_BURST, SERVE_WINDOW_MS = 8, 16, 500.0
+
+
+class RecordingRestorer:
+    """A restorer that keeps a copy of each batch the server hands it, so
+    the served batches can be replayed directly, and the host clock at the
+    start and end of each call; forwards the call."""
+
+    def __init__(self, rest):
+        self.rest, self.device = rest, rest.device
+        self.batches, self.spans = [], []
+
+    def restore_image(self, batch, generator=None):
+        self.batches.append(batch.copy())
+        t = time.perf_counter()
+        out = self.rest.restore_image(batch, generator=generator)
+        self.spans.append((t, time.perf_counter()))
+        return out
+
+
+def serve_phase(launches):
+    """Serving on the production profile (bfloat16, 10 steps, random
+    weights from seed 61) at batch 8.
+
+    First every kernel of the served path against its plain version at
+    the served shapes (8 images; N = 360 patches a UNet call).  Then the
+    card's batch-8 numbers: ``restore_image_device`` on 8
+    synthetic 720x480 images through ``fused_groupnorm`` and through
+    ``fused_resblock``, same weights, inputs and noise, the second held to
+    the bfloat16-vs-float32 gap of the same batch (float32 through the
+    fused kernel).  Then a ``RestorationServer`` at batch 8 on 127.0.0.1,
+    after a warmup, with a 500 ms window: the 16 handler threads decode
+    their PNGs under one interpreter lock (~10 ms each), so a 30-50 ms
+    window would split the burst by timing alone.  16 concurrent 720x480
+    PNG requests must come back in 2 batches, each reply within one uint8
+    level of the restorer called directly on the same padded batch with a
+    generator seeded as the server's; a lone request (padded 1 -> 8) is
+    timed beside ``restore_image`` at batch 1; a body that is not a PNG
+    gets a 500 and the next request a 200.  The launches of the 4 served
+    batches are counted.  Every client call has a timeout; the server is
+    stopped and its threads joined before the checks."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.inference.server import RestorationServer
+    from wavedm_tpu_torch.utils.images import decode_png, encode_png, to_uint8
+
+    def restorer(**parallel):
+        cfg = production_profile()
+        for key, val in parallel.items():
+            setattr(cfg.parallel, key, val)
+        return build_restorer(cfg.validate(), None, None, device="cuda")
+
+    # every kernel of the served path against its plain version at the
+    # served shapes, at the tolerances of the kernels phase: the DWT/IWT on
+    # 8 images, GroupNorm (bfloat16, swish on and off) and the fused kernel
+    # at N = 360 patches a UNet call, timed; the fused kernel in float32
+    # (the gap run below) checked only
+    n_patches = SERVE_BATCH * 45
+    served = check_kernels(production_profile(), n_patches, SERVE_BATCH,
+                           ("bf16",), "serve")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    sites = fused_sites(production_profile(), 2)
+    for dtype, tag, tol, timed in ((torch.bfloat16, "bf16", 2.0 ** -7, True),
+                                   (torch.float32, "f32", 1e-4, False)):
+        row = dict(max_abs_err=0.0, max_rel_err=0.0, tol_rel=tol,
+                   bound_by="operations")
+        fused_at(gen, sites, n_patches, dtype, tag, tol, row, iters=3,
+                 phase="serve", timed=timed)
+        served[f"fused_gn_swish_conv_{tag}"] = row
+    for name, row in served.items():
+        emit("serve", part="kernels", kernel=name,
+             per=f"call on {SERVE_BATCH} images (wavelet) or UNet forward "
+             f"at N = {n_patches}",
+             **{k: v for k, v in row.items() if k not in ("source",
+                                                          "replaces")})
+    del gen
+    torch.cuda.empty_cache()
+
+    # the card's own batch-8 time, both kernel routes
+    images = synthetic_images(SEED + 5, SERVE_BATCH)
+    direct, outs, noise = {}, {}, None
+    for name, parallel in (
+            ("fused_groupnorm", {"fused_groupnorm": True}),
+            ("fused_resblock", {"fused_resblock": True}),
+            ("float32", {"fused_resblock": True,
+                         "compute_dtype": "float32"})):
+        rest = restorer(**parallel)
+        if noise is None:
+            gen = torch.Generator(device=rest.device).manual_seed(SEED)
+            noise = torch.randn((SERVE_BATCH, 3, HEIGHT // 4, WIDTH // 4),
+                                generator=gen, device=rest.device)
+        runs = []
+        for _ in range(1 if name == "float32" else 3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, _ = rest.restore_image_device(images, noise=noise)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t) * 1e3 / SERVE_BATCH)
+        check_output(out, SERVE_BATCH)
+        outs[name] = out
+        steady = runs[1:] or runs
+        direct[name] = dict(first_ms_per_image=runs[0],
+                            ms_per_image_runs=steady,
+                            ms_per_image=sum(steady) / len(steady))
+        steps = len(rest.seq)
+        del rest, out
+    gap = float((outs["fused_groupnorm"] - outs["float32"]).abs().max())
+    fr_diff = float((outs["fused_resblock"]
+                     - outs["fused_groupnorm"]).abs().max())
+    assert fr_diff <= gap, (fr_diff, gap)
+    del outs
+    torch.cuda.empty_cache()
+    emit("serve", part="direct", batch=SERVE_BATCH, steps=steps,
+         patches_per_unet_call=SERVE_BATCH * 45, restore_image_device=direct,
+         fused_resblock_vs_fused_groupnorm=fr_diff, tol_bf16_vs_f32_gap=gap)
+
+    # the server
+    rest = restorer(fused_groupnorm=True)
+    record = RecordingRestorer(rest)
+    srv = RestorationServer(record, batch=SERVE_BATCH,
+                            window_ms=SERVE_WINDOW_MS, rng_seed=SEED)
+    burst = to_uint8(synthetic_images(SEED + 6, SERVE_BURST))
+    t = time.perf_counter()
+    pngs = [encode_png(img) for img in burst]
+    encode_ms = (time.perf_counter() - t) * 1e3 / SERVE_BURST
+    t = time.perf_counter()
+    for png in pngs:
+        srv._decode(png)
+    decode_ms = (time.perf_counter() - t) * 1e3 / SERVE_BURST
+    t = time.perf_counter()
+    rest.restore_image(np.zeros((SERVE_BATCH, HEIGHT, WIDTH, 3), np.float32))
+    warmup_s = time.perf_counter() - t
+
+    # the host clock around each request's decode in its handler thread
+    decode_spans, real_decode = [], srv._decode
+
+    def timed_decode(body):
+        t = time.perf_counter()
+        out = real_decode(body)
+        decode_spans.append((t, time.perf_counter()))
+        return out
+
+    srv._decode = timed_decode
+    httpd = srv.serve("127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+
+    def post(body, timeout=180):
+        req = urllib.request.Request(url + "/restore", data=body,
+                                     method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), (time.perf_counter() - t) * 1e3
+
+    def health():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    results, failures = [None] * SERVE_BURST, []
+
+    def client(i):
+        try:
+            results[i] = post(pngs[i])
+        except Exception as e:  # noqa: BLE001 -- reported below
+            failures.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        # a first GET: urllib's one-time set-up in this process (its opener,
+        # ~0.6 s) is the client's cost, not the server's
+        assert health()["batches"] == 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SERVE_BURST)]
+        burst_t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(240)
+        burst_s = time.perf_counter() - burst_t0
+        assert not failures and all(results), (failures, results.count(None))
+        replies = []
+        for status, body, _ in results:
+            assert status == 200, status
+            img = decode_png(body, "reply")
+            assert img.shape == (HEIGHT, WIDTH, 3), img.shape
+            replies.append(img)
+        after_burst = health()
+        assert (after_burst["served"], after_burst["errors"],
+                after_burst["batches"]) == (SERVE_BURST, 0, 2), after_burst
+
+        status, body, lone_ms = post(pngs[0])
+        assert status == 200, status
+        replies.append(decode_png(body, "reply"))
+        try:
+            post(b"not a png", timeout=60)
+            raise AssertionError("a body that is not a PNG got a 200")
+        except urllib.error.HTTPError as e:
+            bad = e.code, e.read().decode()[:200]
+        assert bad[0] == 500 and "only PNG" in bad[1], bad
+        status, body, survivor_ms = post(pngs[1])
+        assert status == 200, status
+        replies.append(decode_png(body, "reply"))
+        final = health()
+        assert (final["served"], final["errors"], final["batches"]) \
+            == (SERVE_BURST + 2, 0, 4), final
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop(timeout=300)
+        http_thread.join(60)
+    assert not srv._worker.is_alive() and not http_thread.is_alive()
+    n_batches = 4
+    norms = gn_sites(production_profile(), 1)   # 45 with swish, 6 without
+    swish = sum(v for k, v in norms.items() if k[3])
+    want = {"group_norm_bf16_swish": swish * steps * n_batches,
+            "group_norm_bf16": (sum(norms.values()) - swish) * steps
+            * n_batches,
+            "wavelet_dec": 2 * n_batches, "wavelet_rec": n_batches}
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, ("serve", got, want)
+    for key, val in got.items():
+        launches[key] += val
+
+    # each reply against the same padded batch restored directly, the
+    # generator seeded and advanced as the server's
+    assert len(record.batches) == n_batches, len(record.batches)
+    gen = torch.Generator(device=rest.device).manual_seed(SEED)
+    expect = []
+    for batch in record.batches:
+        out, _ = rest.restore_image(batch, generator=gen)
+        expect.append((batch, np.clip(out * 255.0 + 0.5, 0, 255)
+                       .astype(np.uint8)))
+    sources = list(burst) + [burst[0], burst[1]]
+    spans = [(0, 2)] * SERVE_BURST + [(2, 3), (3, 4)]
+    worst = 0
+    for reply, src, (lo, hi) in zip(replies, sources, spans):
+        src = src.astype(np.float32) / 255.0
+        rows = [(b, k) for b in range(lo, hi)
+                for k in range(SERVE_BATCH)
+                if np.array_equal(expect[b][0][k], src)]
+        assert rows, "a reply's image is not in the batches it could be in"
+        b, k = rows[0]
+        worst = max(worst, int(np.abs(reply.astype(int)
+                                      - expect[b][1][k].astype(int)).max()))
+    assert worst <= 1, worst
+
+    rest.restore_image(images[:1])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rest.restore_image(images[:1])
+    torch.cuda.synchronize()
+    batch1_ms = (time.perf_counter() - t) * 1e3
+    del rest, expect
+    torch.cuda.empty_cache()
+    lat = sorted(r[2] for r in results)
+    def rel(spans):
+        return [[(a - burst_t0) * 1e3, (b - burst_t0) * 1e3]
+                for a, b in spans]
+
+    emit("serve", part="server", batch=SERVE_BATCH, window_ms=SERVE_WINDOW_MS,
+         requests=SERVE_BURST, batches_for_burst=after_burst["batches"],
+         burst_decode_start_end_ms=rel(decode_spans[:SERVE_BURST]),
+         burst_batches_start_end_ms=rel(record.spans[:2]),
+         served_batch_ms=[(b - a) * 1e3 for a, b in record.spans],
+         served_ms_per_image=burst_s * 1e3 / SERVE_BURST,
+         direct_ms_per_image={k: v["ms_per_image"] for k, v in direct.items()
+                              if k != "float32"},
+         latency_ms_p50=lat[len(lat) // 2], latency_ms_max=lat[-1],
+         latency_ms=lat, lone_request_ms=lone_ms,
+         restore_image_batch1_ms=batch1_ms, survivor_ms=survivor_ms,
+         host_decode_ms_per_request=decode_ms,
+         host_encode_ms_per_request=encode_ms, warmup_s=warmup_s,
+         peak_bytes=peak, max_uint8_diff_vs_direct=worst,
+         bad_request=bad[0], launches=got, healthz=final)
 
 
 EVAL_PAIRS = 4
@@ -1625,8 +1949,9 @@ def partial(phases, ref_cfg, prod_cfg):
     call: ``kernels`` (the DWT/IWT and GroupNorm kernels against their plain
     versions, timed), ``restore`` (the production restore through
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
-    (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), and
-    the training phases ``train_data``, ``train_hfrm`` and ``pipeline``."""
+    (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
+    training phases ``train_data``, ``train_hfrm`` and ``pipeline``, and
+    ``serve``."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
@@ -1640,6 +1965,8 @@ def partial(phases, ref_cfg, prod_cfg):
         train_hfrm_phase()
     if "pipeline" in phases:
         pipeline_phase(scratch)
+    if "serve" in phases:
+        serve_phase(scratch)
     if "restore" in phases:
         from wavedm_tpu_torch.inference.loader import build_restorer
 
@@ -1664,8 +1991,8 @@ def main(argv=None):
                     "directory (a checkout of another commit) instead of the "
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
-                    "kernels,restore,sweep,train_data,train_hfrm,pipeline to "
-                    "run alone; no final lines")
+                    "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
+                    "serve to run alone; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -1787,6 +2114,7 @@ def main(argv=None):
     del unet_sd
     torch.cuda.empty_cache()
     eval_phase(launches)
+    serve_phase(launches)
 
     # the reference profile (float32, TF32 off, 25 steps from noise) with
     # the fused kernel at all 44 pairs, against the reference restore with

@@ -232,7 +232,7 @@ def test_eval_cli_in_process(capsys, tmp_path, source):
 
 
 def test_eval_cli_refuses_an_orbax_directory(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="cli.convert_orbax"):
         eval_diffusion.main(["--config", "production", "--device", "cpu",
                              "--smoke", "--resume", str(tmp_path)] + TINY)
 

@@ -115,6 +115,27 @@ def test_every_module_imports_without_jax_yaml_or_pil():
             "--val-folder", os.path.join(tmp, "val")]) == 0
         assert os.path.exists(os.path.join(tmp, "val", "step1",
                                            "0_output.png"))
+        # the server answers a PNG from memory, and the card's lock is not
+        # taken for the CPU; the Orbax converter needs orbax only when it
+        # runs
+        from wavedm_tpu_torch.inference.server import RestorationServer
+        from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
+        from wavedm_tpu_torch.utils.images import decode_png, encode_png
+        from wavedm_tpu_torch.utils.orbax_convert import \
+            convert_orbax_checkpoint
+        srv = RestorationServer(rest, batch=2, window_ms=5, no_resize=True)
+        srv.start()
+        reply = srv.restore_bytes(encode_png(img), timeout=120)
+        srv.stop(timeout=60)
+        assert decode_png(reply).shape == (32, 32, 3)
+        assert srv.stats["served"] == 1 and srv.stats["errors"] == 0
+        assert acquire_gpu_lock("hygiene", device="cpu")
+        try:
+            convert_orbax_checkpoint(tmp, os.path.join(tmp, "x"), cfg)
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("the converter ran without orbax")
         import shutil
         shutil.rmtree(tmp)
         loaded = [n for n in {BLOCKED!r} if sys.modules.get(n) is not None]

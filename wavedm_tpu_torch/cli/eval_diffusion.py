@@ -67,7 +67,9 @@ def main(argv=None) -> int:
 
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    acquire_gpu_lock("eval_diffusion", args.device)
     cfg = load_config(args.config, args.overrides)
     for name, val in (("grid_r", args.grid_r),
                       ("sampling_timesteps", args.sampling_timesteps),

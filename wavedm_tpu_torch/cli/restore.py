@@ -72,10 +72,12 @@ def main(argv=None) -> int:
     import torch
 
     from wavedm_tpu_torch.config import load_config
-    from wavedm_tpu_torch.data.raindrop import eval_resize_dims, fit_image
+    from wavedm_tpu_torch.data.raindrop import restore_input
     from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
     from wavedm_tpu_torch.utils.images import read_png, save_image
 
+    acquire_gpu_lock("restore", args.device)
     cfg = load_config(args.config, args.overrides)
     for name, val in (("t_start", args.t_start),
                       ("sampling_timesteps", args.sampling_timesteps),
@@ -97,19 +99,10 @@ def main(argv=None) -> int:
                               args.hfrm_ckpt or cfg.hfrm.ckpt_path or None,
                               device=args.device, ema=args.ema)
 
-    def load(path):
-        img = read_png(path)
-        h, w = img.shape[:2]
-        if args.no_resize:
-            size = 16 * ((w + 15) // 16), 16 * ((h + 15) // 16)
-        else:
-            size = eval_resize_dims(w, h)
-        return fit_image(img, size)
-
     # geometry-bucketed batches: same-size images restore together
     buckets = {}
     for p in paths:
-        arr = load(p)
+        arr = restore_input(read_png(p), args.no_resize)
         buckets.setdefault(arr.shape, []).append((p, arr))
 
     generator = torch.Generator(device=restorer.device).manual_seed(

@@ -129,7 +129,9 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.training.trainer import DiffusionTrainer
     from wavedm_tpu_torch.utils.checkpoint import find_latest_checkpoint
+    from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    acquire_gpu_lock("train_diffusion", args.device)
     cfg = load_config(args.config, args.overrides)
     if args.seed is not None:
         cfg.training.seed = args.seed

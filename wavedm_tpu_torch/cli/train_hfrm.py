@@ -54,7 +54,9 @@ def main(argv=None) -> int:
 
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+    from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    acquire_gpu_lock("train_hfrm", args.device)
     cfg = load_config(args.config, args.overrides)
     trainer = HFRMTrainer(cfg, device=args.device)
     if args.resume:

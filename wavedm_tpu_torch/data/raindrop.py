@@ -34,7 +34,8 @@ import numpy as np
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.utils.images import read_png, resize_lanczos
 
-__all__ = ["eval_resize_dims", "fit_image", "RainDropDataset", "RainDrop"]
+__all__ = ["eval_resize_dims", "fit_image", "restore_input",
+           "RainDropDataset", "RainDrop"]
 
 
 def _list_pairs(root: str) -> Tuple[List[str], List[str]]:
@@ -66,6 +67,18 @@ def fit_image(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if (img.shape[1], img.shape[0]) != tuple(size):
         img = resize_lanczos(img, size)
     return img.astype(np.float32) / 255.0
+
+
+def restore_input(img: np.ndarray, no_resize: bool = False) -> np.ndarray:
+    """(H, W, 3) uint8 -> float32 in [0, 1] at the geometry the restore
+    entry points run at: the eval protocol's (:func:`eval_resize_dims`),
+    or with ``no_resize`` the image's own size rounded up to /16."""
+    h, w = img.shape[:2]
+    if no_resize:
+        size = 16 * ((w + 15) // 16), 16 * ((h + 15) // 16)
+    else:
+        size = eval_resize_dims(w, h)
+    return fit_image(img, size)
 
 
 def _eval_sample(inp: str, gt: str) -> Tuple[np.ndarray, str]:

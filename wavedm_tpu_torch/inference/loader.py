@@ -13,7 +13,8 @@ reference file without the key counts as ``eps``): serving v-trained
 weights as eps, or the reverse, raises instead of restoring wrong images.
 A path is a reference file or the port's own checkpoint
 (``utils/checkpoint.py``, same keys); a directory (the JAX package's
-Orbax checkpoints) raises: its converter is ROADMAP item 9.
+Orbax checkpoints) raises, naming the converter that turns it into one
+(``cli/convert_orbax.py``).
 """
 
 from __future__ import annotations
@@ -29,23 +30,12 @@ from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.hfrm import HFRM
 from wavedm_tpu_torch.models.unet import DiffusionUNet
 from wavedm_tpu_torch.utils.convert import load_torch_checkpoint
+from wavedm_tpu_torch.utils.device import resolve_device
 
 __all__ = ["resolve_device", "init_random_", "build_unet", "build_hfrm",
            "build_restorer"]
 
 Weights = Union[None, str, Mapping[str, torch.Tensor]]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The CUDA card unless the caller names a device; raises when no card
-    is present and none was named (the port never drops to the CPU by
-    itself)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: pass device='cpu' to run the port on the CPU")
-    return torch.device("cuda")
 
 
 @torch.no_grad()
@@ -81,8 +71,10 @@ def _materialize(model: nn.Module, weights: Weights, device: torch.device,
             if os.path.isdir(weights):
                 raise NotImplementedError(
                     f"{weights} is a directory (an Orbax checkpoint?): only "
-                    ".pth/.pth.tar files load here; the Orbax converter is "
-                    "ROADMAP item 9")
+                    ".pth/.pth.tar files load here; convert it where orbax "
+                    "is installed with `python -m "
+                    "wavedm_tpu_torch.cli.convert_orbax --config <config> "
+                    f"{weights} <out>.pth.tar`")
             weights = load_torch_checkpoint(weights, ema=ema,
                                             pred_type=pred_type)
         model.load_state_dict(weights)

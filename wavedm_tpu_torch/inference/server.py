@@ -1,0 +1,248 @@
+"""Batched HTTP restoration serving on the card.
+
+The port's counterpart of ``wavedm_tpu/inference/server.py``.  One
+device-owner thread microbatches concurrent requests (same geometry, up to
+``batch``, within ``window_ms``), runs one restoration on the card and fans
+the results back out; the HTTP side is the standard library's
+``http.server``.
+
+Endpoints:
+  POST /restore     PNG bytes -> restored PNG bytes
+  GET  /healthz     JSON: served/batch stats, queue depth
+
+As in JAX: requests are grouped only with same-shape peers, a mixed queue
+serves the group holding the OLDEST request (no geometry starves), and a
+short batch is padded to the fixed ``batch`` by repeating its last image,
+so the card always runs one batch shape per geometry.  The reply is the
+restored image at the geometry the request was resized to (720x480 unless
+``no_resize``), as JAX replies.
+
+Differences from JAX, by design:
+- The listening socket's backlog holds 128 pending connections.  JAX
+  listens with the standard library's 5: a burst of more concurrent
+  requests than that has connections dropped and retried about a second
+  later, which splits a burst that should fill one batch.
+- Requests must be PNG (decoded by ``utils/images.py``): the card's
+  machine has no JPEG decoder without PIL.  Anything else is answered 500
+  with a ``ValueError`` that says so.
+- x_T comes from one ``torch.Generator`` on the restorer's device, seeded
+  with ``rng_seed`` and advanced by each batch's draws, where JAX splits a
+  ``PRNGKey`` per batch; the two streams differ, so equal seeds do not give
+  equal replies across the packages.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from queue import Empty, Queue
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from wavedm_tpu_torch.data.raindrop import restore_input
+from wavedm_tpu_torch.utils.images import decode_png, encode_png
+
+__all__ = ["Microbatcher", "RestorationServer"]
+
+
+@dataclass
+class _Request:
+    arr: np.ndarray                       # (H, W, 3) float32 [0,1]
+    done: threading.Event = field(default_factory=threading.Event)
+    out: Optional[np.ndarray] = None
+    error: Optional[str] = None
+
+
+class Microbatcher:
+    """Groups queued requests into same-shape batches.
+
+    ``collect()`` blocks for the first request, then drains peers arriving
+    within ``window_ms`` up to ``batch``, returning the same-shape group
+    containing the OLDEST request; stragglers of other shapes and the
+    overflow stay pending for the next call.
+    """
+
+    def __init__(self, batch: int = 8, window_ms: float = 30.0):
+        self.queue: "Queue[_Request]" = Queue()
+        self.batch = batch
+        self.window_ms = window_ms
+        self._pending: List[_Request] = []
+
+    def submit(self, req: _Request) -> None:
+        self.queue.put(req)
+
+    def depth(self) -> int:
+        return self.queue.qsize() + len(self._pending)
+
+    def collect(self, timeout: Optional[float] = None) -> List[_Request]:
+        """Next batch (possibly empty on timeout)."""
+        items = self._pending
+        self._pending = []
+        if not items:
+            try:
+                items = [self.queue.get(timeout=timeout)]
+            except Empty:
+                return []
+        deadline = time.time() + self.window_ms / 1e3
+        while len(items) < self.batch:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                break
+            try:
+                items.append(self.queue.get(timeout=remaining))
+            except Empty:
+                break
+        groups: Dict[Tuple[int, ...], List[_Request]] = {}
+        for r in items:
+            groups.setdefault(tuple(r.arr.shape), []).append(r)
+        best = groups[tuple(items[0].arr.shape)]
+        for reqs in groups.values():
+            if reqs is not best:
+                self._pending.extend(reqs)
+        self._pending.extend(best[self.batch:])
+        return best[:self.batch]
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    request_queue_size = 128           # the listen backlog (stdlib: 5)
+
+
+class RestorationServer:
+    """Device-owner loop + HTTP front end around a ``DiffusiveRestoration``
+    (``inference/loader.py:build_restorer``), which runs on the card unless
+    it was built for another device.  Only the device-owner thread calls the
+    restorer (its per-geometry pipeline cache is not thread-safe)."""
+
+    def __init__(self, restorer, *, batch: int = 8, window_ms: float = 30.0,
+                 no_resize: bool = False, rng_seed: int = 61):
+        self.restorer = restorer
+        self.batcher = Microbatcher(batch=batch, window_ms=window_ms)
+        self.no_resize = no_resize
+        self.stats = {"served": 0, "batches": 0, "errors": 0,
+                      "last_batch_ms": 0.0, "last_batch_size": 0}
+        self._seed = rng_seed
+        self._device = torch.device(getattr(restorer, "device", "cpu"))
+        if self._device.type == "cuda" and self._device.index is None:
+            # the worker thread starts on device 0: pin it to this one's
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        self._stop = threading.Event()
+        self._worker = threading.Thread(target=self._device_loop,
+                                        daemon=True, name="device-owner")
+
+    # ---------------------------------------------------------- device side
+
+    def _device_loop(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+        gen = torch.Generator(device=self._device).manual_seed(self._seed)
+        while not self._stop.is_set():
+            reqs = self.batcher.collect(timeout=0.2)
+            if not reqs:
+                continue
+            t0 = time.time()
+            try:
+                stacked = np.stack([r.arr for r in reqs])
+                # pad short batches to the fixed batch size (repeat the last
+                # image): the card runs one batch shape per geometry
+                pad = self.batcher.batch - len(reqs)
+                if pad > 0:
+                    stacked = np.concatenate(
+                        [stacked, np.repeat(stacked[-1:], pad, axis=0)])
+                out, _ = self.restorer.restore_image(stacked, generator=gen)
+                for r, img in zip(reqs, out[:len(reqs)]):
+                    r.out = np.asarray(img)
+                self.stats["served"] += len(reqs)
+            except Exception as e:  # noqa: BLE001 -- fan the error out
+                for r in reqs:
+                    r.error = f"{type(e).__name__}: {e}"[:500]
+                self.stats["errors"] += len(reqs)
+            finally:
+                ms = (time.time() - t0) * 1e3
+                self.stats["batches"] += 1
+                self.stats["last_batch_ms"] = round(ms, 1)
+                self.stats["last_batch_size"] = len(reqs)
+                for r in reqs:
+                    r.done.set()
+
+    # ------------------------------------------------------------ HTTP side
+
+    def _decode(self, body: bytes) -> np.ndarray:
+        """PNG bytes -> (h, w, 3) float32 in [0, 1] at the serving geometry:
+        the eval protocol's 720x480 (LANCZOS), or with ``no_resize`` the
+        image's own size rounded up to /16."""
+        return restore_input(decode_png(body, "request body"),
+                             self.no_resize)
+
+    def restore_bytes(self, body: bytes, timeout: float = 600.0) -> bytes:
+        """Decode -> enqueue -> await the device owner -> PNG bytes."""
+        req = _Request(self._decode(body))
+        self.batcher.submit(req)
+        if not req.done.wait(timeout):
+            raise TimeoutError("restoration timed out")
+        if req.error:
+            raise RuntimeError(req.error)
+        arr = np.clip(np.asarray(req.out) * 255.0 + 0.5, 0, 255)
+        return encode_png(arr.astype(np.uint8))
+
+    def make_handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet by default
+                pass
+
+            def do_GET(self):
+                if self.path != "/healthz":
+                    self.send_error(404)
+                    return
+                body = json.dumps(
+                    {**server.stats, "queue_depth": server.batcher.depth()}
+                ).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_POST(self):
+                if self.path != "/restore":
+                    self.send_error(404)
+                    return
+                n = int(self.headers.get("Content-Length", 0))
+                try:
+                    png = server.restore_bytes(self.rfile.read(n))
+                except Exception as e:  # noqa: BLE001
+                    msg = f"{type(e).__name__}: {e}".encode()[:1000]
+                    self.send_response(500)
+                    self.send_header("Content-Length", str(len(msg)))
+                    self.end_headers()
+                    self.wfile.write(msg)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "image/png")
+                self.send_header("Content-Length", str(len(png)))
+                self.end_headers()
+                self.wfile.write(png)
+
+        return Handler
+
+    def start(self) -> None:
+        self._worker.start()
+
+    def stop(self, timeout: Optional[float] = None) -> None:
+        """Stop the device-owner loop and join its thread (after the batch
+        it is running, if any)."""
+        self._stop.set()
+        if self._worker.is_alive():
+            self._worker.join(timeout)
+
+    def serve(self, host: str = "0.0.0.0", port: int = 8000):
+        """Start the device owner; returns the HTTP server (not yet
+        serving: call its ``serve_forever``)."""
+        self.start()
+        return _HTTPServer((host, port), self.make_handler())

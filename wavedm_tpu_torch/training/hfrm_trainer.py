@@ -27,7 +27,8 @@ from wavedm_tpu_torch.training.state import TrainState
 from wavedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from wavedm_tpu_torch.utils.profiling import MetricsLogger, StepTimer
 
-__all__ = ["tv_loss", "hfrm_lr", "image_psnr", "HFRMTrainer"]
+__all__ = ["tv_loss", "hfrm_lr", "image_psnr", "make_hfrm_optimizer",
+           "HFRMTrainer"]
 
 
 def tv_loss(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
@@ -45,6 +46,13 @@ def hfrm_lr(base_lr: float, step: int) -> float:
     """The learning rate of update ``step`` (0 for the first):
     base_lr * 0.5**(step / 1e5)."""
     return base_lr * 0.5 ** (step / 100000.0)
+
+
+def make_hfrm_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """Adam(betas (0.5, 0.999), eps 1e-8) at ``hfrm.lr`` (each update sets
+    its own rate, :func:`hfrm_lr`)."""
+    return torch.optim.Adam(params, lr=cfg.hfrm.lr, betas=(0.5, 0.999),
+                            eps=1e-8)
 
 
 def image_psnr(fake: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -77,9 +85,7 @@ class HFRMTrainer:
         self.log(f"Total_params_model: {n_params / 1e6}M")
         self.state = TrainState(
             model=self.model,
-            optimizer=torch.optim.Adam(self.model.parameters(),
-                                       lr=cfg.hfrm.lr, betas=(0.5, 0.999),
-                                       eps=1e-8),
+            optimizer=make_hfrm_optimizer(cfg, self.model.parameters()),
             ema={}, step=0,
             generator=torch.Generator(device=self.device).manual_seed(
                 cfg.training.seed))

@@ -8,8 +8,11 @@ or its EMA shadow from it, plus the generator's state and the
 refuses a file whose ``pred_type`` differs from the config's.  A trainer
 adds scalars of its own through ``extra`` (the stage-1 trainer: its
 ``best_psnr``; it keeps no EMA, so its ``ema_helper`` is empty), and
-``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  Orbax
-checkpoints of the JAX package are not read here (ROADMAP item 9).
+``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  The JAX
+package's Orbax checkpoints become such files through
+``utils/orbax_convert.py``, which writes a seed (``training.seed``) in
+place of the generator's state; :func:`load_checkpoint` seeds the
+generator with it.
 """
 
 from __future__ import annotations
@@ -17,14 +20,14 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.training.state import TrainState
 
-__all__ = ["SUFFIX", "save_checkpoint", "load_checkpoint",
+__all__ = ["SUFFIX", "save_checkpoint", "write_checkpoint", "load_checkpoint",
            "find_latest_checkpoint", "prune_checkpoints"]
 
 SUFFIX = ".pth.tar"
@@ -38,16 +41,29 @@ def save_checkpoint(path: str, state: TrainState, cfg: Config,
     """Write ``state`` and the ``extra`` scalars to ``path`` (``SUFFIX``
     appended if missing) through a temporary file, so a cut write leaves
     no partial checkpoint."""
+    return write_checkpoint(
+        path, cfg, state_dict=state.model.state_dict(),
+        optimizer=state.optimizer.state_dict(), ema_helper=state.ema,
+        step=state.step, generator=state.generator.get_state(), epoch=epoch,
+        extra=extra)
+
+
+def write_checkpoint(path: str, cfg: Config, *, state_dict: Dict,
+                     optimizer: Dict, ema_helper: Dict, step: int,
+                     generator: Union[torch.Tensor, int], epoch: int = 0,
+                     extra: Optional[Dict] = None) -> str:
+    """:func:`save_checkpoint` from the parts of a train state:
+    ``generator`` is a generator's state, or an int seed for it."""
     if not path.endswith(SUFFIX):
         path += SUFFIX
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {
-        "state_dict": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "ema_helper": state.ema,
-        "step": int(state.step),
+        "state_dict": state_dict,
+        "optimizer": optimizer,
+        "ema_helper": ema_helper,
+        "step": int(step),
         "epoch": int(epoch),
-        "generator": state.generator.get_state(),
+        "generator": generator,
         "pred_type": cfg.training.pred_type,
         "config": dataclasses.asdict(cfg),
         **(extra or {}),
@@ -74,7 +90,10 @@ def load_checkpoint(path: str, state: TrainState, cfg: Config) -> Dict:
         for name, value in obj["ema_helper"].items():
             state.ema[name].copy_(value)
     state.step = int(obj["step"])
-    state.generator.set_state(obj["generator"])
+    if isinstance(obj["generator"], int):      # a converted Orbax checkpoint
+        state.generator.manual_seed(obj["generator"])
+    else:
+        state.generator.set_state(obj["generator"])
     return {k: v for k, v in obj.items() if k not in _TENSORS}
 
 

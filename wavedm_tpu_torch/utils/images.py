@@ -2,14 +2,15 @@
 numpy, PIL's LANCZOS and BILINEAR resamples in numpy, and the dump helpers of
 ``wavedm_tpu/utils/images.py``.
 
-``read_png`` takes 8-bit, non-interlaced PNGs of colour type 0 (grey),
-2 (RGB) or 6 (RGBA) and returns (H, W, 3) uint8 RGB, the alpha dropped
-and grey replicated as PIL's ``convert("RGB")`` does.  All
-five row filters are undone; Sub and Up vectorise per row, Average and
+``decode_png`` (``read_png`` for a file) takes 8-bit, non-interlaced PNGs
+of colour type 0 (grey), 2 (RGB) or 6 (RGBA) and returns (H, W, 3) uint8
+RGB, the alpha dropped and grey replicated as PIL's ``convert("RGB")``
+does.  All five row filters are undone; Sub and Up vectorise per row, Average and
 Paeth run a Python loop (the RainDrop test split uses only Sub and Up).
 Palette images, other bit depths, Adam7 interlacing and other formats
-raise ``ValueError`` naming the file and the field.  ``write_png`` writes
-an RGB image as one IDAT with filter 0 (None) or 2 (Up) on every row.
+raise ``ValueError`` naming the file and the field.  ``encode_png``
+(``write_png`` for a file) writes an RGB image as one IDAT with filter 0
+(None) or 2 (Up) on every row.
 
 ``resize_lanczos`` and ``resize_bilinear`` are PIL's ``Image.resize``
 with ``Image.LANCZOS`` and ``Image.BILINEAR`` on a uint8 image: a
@@ -30,7 +31,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 __all__ = ["to_uint8", "save_image", "make_grid", "read_png", "write_png",
-           "resize_lanczos", "resize_bilinear"]
+           "decode_png", "encode_png", "resize_lanczos", "resize_bilinear"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}            # colour type -> samples a pixel
@@ -69,17 +70,17 @@ def make_grid(images: Sequence[np.ndarray], nrow: int = 4,
 
 # ------------------------------------------------------------------- PNG
 
-def _chunks(path: str, data: bytes):
+def _chunks(name: str, data: bytes):
     """(type, body) of each chunk, CRCs checked, up to IEND."""
     pos = len(_PNG_SIGNATURE)
     while True:
         if pos + 12 > len(data):
-            raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+            raise ValueError(f"{name}: truncated PNG (no IEND chunk)")
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if len(body) != length or zlib.crc32(ctype + body) != crc:
-            raise ValueError(f"{path}: chunk {ctype!r} is corrupt (CRC)")
+            raise ValueError(f"{name}: chunk {ctype!r} is corrupt (CRC)")
         yield ctype, body
         if ctype == b"IEND":
             return
@@ -111,38 +112,44 @@ def _unfilter_paeth(line: np.ndarray, prev: np.ndarray,
 def read_png(path: str) -> np.ndarray:
     """An 8-bit PNG file -> (H, W, 3) uint8 RGB."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of an 8-bit PNG -> (H, W, 3) uint8 RGB; errors name
+    ``name``."""
     if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (signature)")
+        raise ValueError(f"{name}: not a PNG file (signature); only PNG "
+                         "input is supported")
     header, idat = None, []
-    for ctype, body in _chunks(path, data):
+    for ctype, body in _chunks(name, data):
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype[0] & 0x20 == 0 and ctype not in (b"PLTE", b"IEND"):
-            raise ValueError(f"{path}: unknown critical chunk {ctype!r}")
+            raise ValueError(f"{name}: unknown critical chunk {ctype!r}")
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, colour, compression, filtering, interlace = header
     if colour not in _CHANNELS:
         kind = " (palette)" if colour == 3 else ""
-        raise ValueError(f"{path}: colour type {colour}{kind} is not "
+        raise ValueError(f"{name}: colour type {colour}{kind} is not "
                          "supported")
     if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth} is not supported "
+        raise ValueError(f"{name}: bit depth {depth} is not supported "
                          "(8 only)")
     if interlace != 0:
-        raise ValueError(f"{path}: interlace method {interlace} (Adam7) is "
+        raise ValueError(f"{name}: interlace method {interlace} (Adam7) is "
                          "not supported")
     if compression != 0 or filtering != 0:
-        raise ValueError(f"{path}: compression/filter method "
+        raise ValueError(f"{name}: compression/filter method "
                          f"{compression}/{filtering} is not PNG's")
     bpp = _CHANNELS[colour]
     stride = w * bpp
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: image data holds {len(raw)} bytes, "
+        raise ValueError(f"{name}: image data holds {len(raw)} bytes, "
                          f"IHDR asks for {h * (stride + 1)}")
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
@@ -161,7 +168,7 @@ def read_png(path: str) -> np.ndarray:
         elif kind == 4:
             out[y] = _unfilter_paeth(line, prev, bpp)
         else:
-            raise ValueError(f"{path}: row {y} has filter type {kind}")
+            raise ValueError(f"{name}: row {y} has filter type {kind}")
         prev = out[y]
     img = out.reshape(h, w, bpp)
     if bpp == 1:
@@ -175,23 +182,32 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with
-    ``filter_type`` 0 (None) or 2 (Up), one IDAT."""
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG file
+    (:func:`encode_png`)."""
+    data = encode_png(img, filter_type, path)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray, filter_type: int = 2,
+               name: str = "encode_png") -> bytes:
+    """An (H, W, 3) uint8 image -> the bytes of an 8-bit RGB PNG, every row
+    with ``filter_type`` 0 (None) or 2 (Up), one IDAT; errors name
+    ``name``."""
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"{path}: write_png takes (H, W, 3) uint8, got "
+        raise ValueError(f"{name}: write_png takes (H, W, 3) uint8, got "
                          f"{img.shape} {img.dtype}")
     if filter_type not in (0, 2):
-        raise ValueError(f"{path}: filter type {filter_type} (0 or 2)")
+        raise ValueError(f"{name}: filter type {filter_type} (0 or 2)")
     h, w, _ = img.shape
     rows = np.ascontiguousarray(img).reshape(h, w * 3)
     if filter_type == 2:
         rows = rows - np.concatenate([np.zeros_like(rows[:1]), rows[:-1]])
     raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], 1)
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-                + _chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
 
 
 # ------------------------------------------------------------- resampling
