@@ -78,6 +78,17 @@ Phases, each printing one JSON line with its elapsed seconds:
                     ``--hfrm-ckpt`` to cli.train_diffusion (2 steps) -> that
                     checkpoint to cli.eval_diffusion over 2 pairs; the
                     served HFRM holds the stage-1 file's weights
+  variants          the three variant paths of the shipped configs at full
+                    width (chains cut to 2 steps): the pixel path on one
+                    720x480 image (874 patches of 128x128, micro-batches of
+                    128) in bfloat16 through ``fused_groupnorm`` and
+                    ``fused_resblock``, held within the bfloat16-vs-float32
+                    gap, and on a 256x256 image in float32 through both;
+                    global attention on two 720x480 images, unbatched and in
+                    micro-batches of 16; the Laplacian path on one 720x480
+                    pair through both routes; one training step of each
+                    domain; every kernel against its plain version at these
+                    paths' shapes (new rows of the kernel table)
 
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -96,6 +107,7 @@ kernel under each launch plan.
 """
 
 import json
+import math
 import os
 import re
 import shutil
@@ -495,7 +507,6 @@ def fused_at(gen, sites, n, dtype, tag, tol, row, key="", iters=10,
             tot[name] += count * val          # per UNet forward
     if timed:
         tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
-        assert tot["ops_ms"] >= tot["bytes_ms"]
         for name, val in tot.items():
             row[name + key] = val
     return plans
@@ -544,6 +555,7 @@ def check_fused_kernels(cfg):
         for n, key in ((90, ""), (16, "_n16")):
             iters = 3 if (tag, n) == ("f32", 90) else 10
             plans = fused_at(gen, sites, n, dtype, tag, tol, row, key, iters)
+            assert row["ops_ms" + key] >= row["bytes_ms" + key]
             if n == 90:
                 assert all(s == 1 for (_, h, _), s in plans.items()
                            if h > 8), plans
@@ -666,10 +678,10 @@ def restore_timed(rest, images):
     return out, hfrm_out, (time.perf_counter() - t) * 1e3
 
 
-def check_output(out, n=N_IMAGES):
+def check_output(out, n=N_IMAGES, hw=(HEIGHT, WIDTH)):
     import torch
 
-    assert tuple(out.shape) == (n, HEIGHT, WIDTH, 3), out.shape
+    assert tuple(out.shape) == (n, *hw, 3), out.shape
     assert bool(torch.isfinite(out).all())
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
@@ -831,20 +843,20 @@ def check_whole_image_kernels(cfg):
     return out
 
 
-def counted_restore(rest, images, want, name, launches):
+def counted_restore(rest, images, want, name, launches=None):
     """A first restore with the launch counts set to 0 just before it,
-    checked against ``want`` and added to ``launches``; returns
-    (output, first ms, the launches it made)."""
+    checked against ``want`` and added to ``launches`` (when given);
+    returns (output, first ms, the launches it made)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out, _, first_ms = restore_timed(rest, images)
     counts = read_counts()
-    check_output(out)
+    check_output(out, len(images), images.shape[1:3])
     got = {k: v for k, v in counts.items() if v}
     assert got == want, (name, got, want)
-    for key, val in got.items():
+    for key, val in got.items() if launches is not None else ():
         launches[key] += val
     return out, first_ms, got
 
@@ -930,9 +942,11 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
         out, first_ms, got = counted_restore(rest, images, want,
                                              f"whole_image {name}", launches)
         peak = torch.cuda.max_memory_allocated()
-        # float32 goes through cuDNN's float32 convolutions: seconds a run
+        # float32 goes through cuDNN's float32 convolutions: seconds a run,
+        # so its counted first run is its time
         w_ms = [restore_timed(rest, images)[2] / N_IMAGES
-                for _ in range(1 if name == "f32" else 2)]
+                for _ in range(0 if name == "f32" else 2)] or [
+                    first_ms / N_IMAGES]
         del rest
         whole[name] = out
         emit("sampler", chain="whole_image", variant=name,
@@ -1047,7 +1061,7 @@ def serve_phase(launches):
             noise = torch.randn((SERVE_BATCH, 3, HEIGHT // 4, WIDTH // 4),
                                 generator=gen, device=rest.device)
         runs = []
-        for _ in range(1 if name == "float32" else 3):
+        for _ in range(1 if name == "float32" else 2):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out, _ = rest.restore_image_device(images, noise=noise)
@@ -1901,6 +1915,557 @@ def pipeline_phase(launches):
     torch.cuda.empty_cache()
 
 
+VARIANT_STEPS = 2       # reverse steps of each variant restore (cut from 25)
+PIXEL_MB = 128          # patch_micro_batch of the 720x480 pixel restore
+SMALL = 256             # side of the pixel path's float32 image
+# UNet parameters at full width (the pixel, global and lap profiles)
+VARIANT_PARAMS = {"pixel": 109_736_835, "global": 187_478_275,
+                  "lap": 68_796_547}
+
+
+def variant_cfg(name, **changes):
+    """A variant profile (``pixel``, ``global``, ``lap``: the shipped
+    ``raindrop*.yaml`` configs) with its chain cut to ``VARIANT_STEPS``
+    steps (keeping the last x0 estimate) and ``section__key`` changes."""
+    from wavedm_tpu_torch.config import PROFILES
+
+    cfg = PROFILES[name]()
+    cfg.sampling.sampling_timesteps = VARIANT_STEPS
+    cfg.sampling.x0_pred_index = -1
+    for key, val in changes.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg.validate()
+
+
+def site_launches(cfg, route, calls):
+    """The kernel launches of ``calls`` UNet forwards of ``cfg``'s UNet
+    through ``route`` (``fused_groupnorm`` or ``fused_resblock``)."""
+    tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
+    if route == "fused_resblock":
+        return {f"fused_gn_swish_conv_{tag}":
+                sum(fused_sites(cfg, 1).values()) * calls}
+    sites = gn_sites(cfg, 1)
+    return {f"group_norm_{tag}_swish": calls * sum(
+                n for key, n in sites.items() if key[3]),
+            f"group_norm_{tag}": calls * sum(
+                n for key, n in sites.items() if not key[3])}
+
+
+def variant_restore(name, rest, inp, want, n_timed=1):
+    """:func:`counted_restore`, then ``n_timed`` steady runs.  Returns
+    (output, launches, first ms, steady ms per image (None without a
+    timed run), peak bytes)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out, first_ms, got = counted_restore(rest, inp, want, name)
+    peak = torch.cuda.max_memory_allocated()
+    runs = [restore_timed(rest, inp)[2] / inp.shape[0]
+            for _ in range(n_timed)]
+    return out, got, first_ms, sum(runs) / len(runs) if runs else None, peak
+
+
+def gn_row(gen, sites, n, dtype, tag, swish, phase):
+    """GroupNorm(+swish) at every ``swish`` site of ``sites`` at batch ``n``
+    against its plain version (the tolerances of :func:`check_kernels`),
+    its times summed over one UNet forward: one row of the kernel table."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import groupnorm_cuda as gn
+
+    atol, rtol = (2e-5, 2e-5) if tag == "f32" else (1e-6, 2.0 ** -6)
+    row = dict(source="wavedm_tpu_torch/csrc/groupnorm.cu",
+               replaces="wavedm_tpu/ops/groupnorm_pallas.py:27",
+               max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, library_ms=0.0, bound_by="bytes")
+    for (c, h, w, sw), count in sorted(sites.items()):
+        if sw != swish:
+            continue
+        x = (torch.randn(n, c, h, w, device=gen.device, generator=gen) * 3
+             + 1).to(dtype)
+        wt = torch.randn(c, device=gen.device, generator=gen)
+        bs = torch.randn(c, device=gen.device, generator=gen)
+        y = gn.group_norm(x, wt, bs, 32, 1e-6, swish)
+        yp = gn.group_norm_plain(x, wt, bs, 32, 1e-6, swish)
+        torch.cuda.synchronize()
+        diff = (y.float() - yp.float()).abs()
+        excess = float((diff - rtol * yp.float().abs()).max())
+        assert excess <= atol, (tag, n, c, h, w, swish, excess)
+        wl, bl = wt.to(dtype), bs.to(dtype)
+
+        def lib():
+            o = F.group_norm(x, 32, wl, bl, 1e-6)
+            return F.silu(o) if swish else o
+
+        vals = dict(ms=time_ms(lambda: gn.group_norm(x, wt, bs, 32, 1e-6,
+                                                     swish), 10),
+                    device_ms=device_ms(lambda t: gn.group_norm(
+                        t, wt, bs, 32, 1e-6, swish), x, 10),
+                    plain_ms=time_ms(lambda: gn.group_norm_plain(
+                        x, wt, bs, 32, 1e-6, swish), 10),
+                    library_ms=time_ms(lib, 10), bound_ms=bound_ms(x, y))
+        emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish else ""),
+             shape=[n, c, h, w], count_per_forward=count,
+             max_abs_err=float(diff.max()),
+             share_of_bound=vals["bound_ms"] / vals["device_ms"],
+             plan=gn_plan(gn, n, c, h * w, dtype), **vals)
+        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        for key, val in vals.items():
+            row[key] += count * val
+        del x, y, yp
+    return row
+
+
+def fused_row(gen, cfg, n, dtype, tag, phase, hw=None, timed=True,
+              iters=10):
+    """The fused kernel at every site of ``cfg``'s UNet at batch ``n``
+    (:func:`fused_at`, the tolerances of :func:`check_fused_kernels`): one
+    row of the kernel table, timed over one UNet forward."""
+    row = dict(source="wavedm_tpu_torch/csrc/fused_resblock.cu",
+               replaces="wavedm_tpu/ops/fused_resblock.py:67",
+               max_abs_err=0.0, max_rel_err=0.0, bound_by="operations")
+    tol = 1e-4 if tag == "f32" else 2.0 ** -7
+    fused_at(gen, fused_sites(cfg, n, hw), n, dtype, tag, tol, row,
+             iters=iters, phase=phase, timed=timed)
+    if timed and row["bytes_ms"] > row["ops_ms"]:
+        row["bound_by"] = "bytes"
+    return row
+
+
+def variant_train(name, cfg, phase="variants"):
+    """One steady-state step of ``DiffusionTrainer`` on ``cfg``'s domain
+    through ``fused_resblock``, on synthetic crops (with the whole image on
+    the global domain): a warm-up step, then two steps with the launch
+    counts set to 0 just before them.  Returns the counts."""
+    import itertools
+
+    import torch
+
+    from wavedm_tpu_torch.cli.train_diffusion import smoke_batches
+    from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+
+    trainer = DiffusionTrainer(cfg, device="cuda", log_fn=lambda msg: None)
+    batches = list(itertools.islice(smoke_batches(cfg)(0), 3))
+
+    def step(batch):
+        if trainer.lap_state is not None:
+            return trainer.train_step(trainer.state, trainer.lap_state,
+                                      batch, 2e-4)
+        return trainer.train_step(trainer.state, batch)
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    metrics = [step(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / 2
+    got = {k: v for k, v in read_counts().items() if v}
+    tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
+    want = {f"fused_gn_swish_conv_{tag}":
+            2 * sum(fused_sites(cfg, 1).values())}
+    if cfg.data.global_attn:
+        want["wavelet_dec"] = 2 * 3      # cond and gt crops, the total
+    assert got == want, (name, got, want)
+    loss = [float(m.loss) for m in metrics]
+    assert all(map(math.isfinite, loss)), loss
+    emit(phase, train=name, crops=cfg.training.patch_n,
+         patch=cfg.data.patch_size, dtype=cfg.parallel.compute_dtype,
+         params_unet=sum(p.numel() for p in trainer.model.parameters()),
+         launches=got, ms_per_step=ms,
+         peak_bytes=torch.cuda.max_memory_allocated(), loss=loss,
+         loss_trans=[float(m.loss_trans) for m in metrics])
+    del trainer, batches, metrics
+    torch.cuda.empty_cache()
+    return got
+
+
+VARIANT_SMALL = {
+    "pixel": ({"image_size": 16, "patch_size": 16}, (32, 48)),
+    "global": ({"image_size": 8, "patch_size": 32}, (128, 192)),
+    "lap": ({"image_size": 8, "patch_size": 32}, (64, 96)),
+}
+
+
+def variant_parity():
+    """Each variant path at a small size (width 32, two levels, T = 50) on
+    the card (kernels) against the same path on the CPU (plain versions),
+    float32, the same weights and noise: a restore through each kernel
+    route, within 1e-4 (the CPU tests hold the CPU path to JAX to this
+    bound), and one SGD train step through ``fused_resblock``, loss and
+    parameters within 1e-4 relative."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import PROFILES, config_from_dict
+    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+
+    rng = np.random.default_rng(SEED)
+    for name, (data, (h, w)) in VARIANT_SMALL.items():
+        raw = dataclasses.asdict(PROFILES[name]())
+        raw["data"].update(data)
+        raw["model"].update(ch=32, ch_mult=[1, 2], num_res_blocks=1,
+                            attn_resolutions=[data["image_size"] // 2])
+        raw["diffusion"]["num_diffusion_timesteps"] = 50
+        raw["sampling"].update(sampling_timesteps=3, grid_r=4)
+        raw["hfrm"].update(dim=8, enc_blk_nums=[1, 1], middle_blk_num=1,
+                           dec_blk_nums=[1, 1])
+        raw["training"].update(patch_n=4)
+        raw["optim"].update(optimizer="SGD", lr=1e-3)
+        nch = 6 if name == "lap" else 3
+        images = rng.random((2, h, w, nch), dtype=np.float32)
+        sub = 1 if name == "pixel" else 4
+        noise = torch.randn(2, 3, h // sub, w // sub,
+                            generator=torch.Generator().manual_seed(1))
+        weights = None
+        for route in ("fused_groupnorm", "fused_resblock"):
+            if name == "global" and route == "fused_groupnorm":
+                continue        # the global UNet takes no GroupNorm kernel
+            raw["parallel"] = {route: True}
+            cfg = config_from_dict(raw)
+            cpu = build_restorer(cfg, *(weights or (None, None)),
+                                 device="cpu")
+            weights = weights or (cpu.unet.state_dict(), cpu.hfrm and
+                                  cpu.hfrm.state_dict())
+            ref, _ = cpu.restore_image(images, noise=noise)
+            out, _ = build_restorer(cfg, *weights, device="cuda"
+                                    ).restore_image(images, noise=noise)
+            err = float(np.abs(out - ref).max())
+            emit("variants", parity=name, route=route, shape=list(out.shape),
+                 max_abs_err=err, tol=1e-4)
+            assert err <= 1e-4, (name, route, err)
+        batch = rng.random((4, data["patch_size"], data["patch_size"], 6),
+                           dtype=np.float32)
+        if name == "global":
+            batch = (batch, rng.random((1, h, w, 3), dtype=np.float32))
+        d = data["patch_size"] // (1 if name == "pixel" else 4)
+        t = torch.tensor([3, 46, 20, 29])
+        e = torch.randn(4, 3, d, d, generator=torch.Generator().manual_seed(2))
+        steps, lap_sd = [], None
+        for dev in ("cpu", "cuda"):
+            trainer = DiffusionTrainer(cfg, device=dev, log_fn=lambda m: None)
+            trainer.model.load_state_dict(weights[0])
+            args = (batch,)
+            if trainer.lap_state is not None:
+                lap_sd = lap_sd or {k: v.clone() for k, v in
+                                    trainer.lap_state.model.state_dict()
+                                    .items()}
+                trainer.lap_state.model.load_state_dict(lap_sd)
+                args = (trainer.lap_state, batch, 2e-4)
+            m = trainer.train_step(trainer.state, *args, t=t, e=e)
+            steps.append((float(m.loss), float(m.loss_trans), {
+                k: v.cpu() for k, v in trainer.model.state_dict().items()}))
+        (l0, lt0, sd0), (l1, lt1, sd1) = steps
+        errs = [abs(l1 - l0) / abs(l0), abs(lt1 - lt0) / max(abs(lt0), 1e-30),
+                max(float((sd1[k] - sd0[k]).abs().max() / sd0[k].abs().max())
+                    for k in sd0)]
+        emit("variants", parity=name, train_step="SGD",
+             loss_rel_err=errs[0], loss_trans_rel_err=errs[1],
+             param_rel_err=errs[2], tol_rel=1e-4)
+        assert max(errs) <= 1e-4, (name, errs)
+
+
+def variant_kernel_rows(pix, lap_cfg, n):
+    """Every kernel against its plain version at the shapes the variant
+    paths give it, timed: {row name: (row, the run whose launches it
+    counts)}.  ``n``: patches a UNet call of each run (``pixel``,
+    ``pixel_small``, ``lap``)."""
+    import torch
+
+    from wavedm_tpu_torch.ops import wavelet_cuda as wv
+    from wavedm_tpu_torch.ops.wavelet import conv_weights
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    new = {}
+    # the DWT of the global domain's whole image, (1, 3, 480, 720)
+    x = torch.rand(1, 3, HEIGHT, WIDTH, device=gen.device,
+                   generator=gen) * 2 - 1
+    z, z_plain = wv.wavelet_dec_cuda(x), wv.wavelet_dec_plain(x)
+    torch.cuda.synchronize()
+    err = float((z - z_plain).abs().max())
+    assert err <= 2e-6, err
+    bank = torch.as_tensor(conv_weights(2, 3), device=x.device)
+    new["wavelet_dec@global_total"] = (dict(
+        source="wavedm_tpu_torch/csrc/wavelet.cu",
+        replaces="wavedm_tpu/ops/wavelet_pallas.py:44", max_abs_err=err,
+        ms=time_ms(lambda: wv.wavelet_dec_cuda(x)),
+        device_ms=device_ms(wv.wavelet_dec_cuda, x),
+        plain_ms=time_ms(lambda: wv.wavelet_dec_plain(x)),
+        bound_ms=bound_ms(x, z), bound_by="bytes",
+        library_ms=time_ms(lambda: torch.nn.functional.conv2d(
+            x, bank, stride=4, groups=3))), "train_global")
+    del x, z, z_plain
+
+    pix32 = variant_cfg("pixel")
+    for cfg, m, dtype, tag, path, run in (
+            (pix, n["pixel"], bf16, "bf16", "pixel", "pixel_fused_groupnorm"),
+            (pix32, n["pixel_small"], f32, "f32", "pixel_small",
+             "pixel_small_fused_groupnorm"),
+            (lap_cfg, n["lap"], f32, "f32", "lap", "lap_fused_groupnorm")):
+        sites = gn_sites(cfg, m)
+        for swish in (True, False):
+            name = f"group_norm_{tag}" + ("_swish" if swish else "")
+            new[f"{name}@{path}"] = (gn_row(gen, sites, m, dtype, tag, swish,
+                                            "variants"), run)
+    for key, cfg, m, dtype, tag, run, iters in (
+            ("pixel", pix, n["pixel"], bf16, "bf16", "pixel_fused_resblock",
+             5),
+            ("pixel_small", pix32, n["pixel_small"], f32, "f32",
+             "pixel_small_fused_resblock", 1),
+            ("lap", lap_cfg, n["lap"], f32, "f32", "lap_fused_resblock", 5),
+            ("lap_train", lap_cfg, lap_cfg.training.patch_n, f32, "f32",
+             "train_lap", 5)):
+        # the lap domain trains on the 4x smaller coarse level of its crops
+        hw = ((lap_cfg.data.patch_size // 4,) * 2 if key == "lap_train"
+              else None)
+        new[f"fused_gn_swish_conv_{tag}@{key}"] = (fused_row(
+            gen, cfg, m, dtype, tag, "variants", hw, iters=iters), run)
+    # the pixel domain's training shapes (20 crops of 128x128), checked but
+    # not timed.  The global UNet's ResnetBlocks are the flagship's, at the
+    # flagship's batches (90 patches, 8 training crops): the ``kernels``
+    # and ``train`` phases hold them.
+    fused_row(gen, pix32, pix32.training.patch_n, f32, "f32", "variants",
+              timed=False)
+    torch.cuda.empty_cache()
+    return new
+
+
+def variants_phase(launches, rows):
+    """The three variant paths of the shipped configs at full width,
+    random weights from seed 61, each chain cut to ``VARIANT_STEPS`` steps:
+
+    - each path at a small size on the card against the CPU
+      (:func:`variant_parity`);
+    - every kernel against its plain version at the shapes these paths
+      give it (:func:`variant_kernel_rows`), each a new row of the kernel
+      table, its launches those of the run below that used it;
+    - pixel (``raindrop.yaml``, 109.7 M params): one 720x480 image, 874
+      patches of 128x128 in micro-batches of ``PIXEL_MB``, bfloat16 through
+      ``fused_groupnorm`` and through ``fused_resblock`` and float32
+      through ``fused_resblock``: in one UNet call and in the restore,
+      each bfloat16 route within twice the other's distance to float32;
+      then float32 on a 256x256 image (81 patches) through both routes,
+      held within 1e-3 (summation order);
+    - global attention (``raindrop_wavelet_global.yaml``, float32): two
+      720x480 images through ``fused_resblock`` at B = 2, and again in
+      micro-batches of 16 patches, held within 1e-3 (each patch attends
+      to its own image either way);
+    - Laplacian (``raindrop_lap.yaml``, float32): one 720x480 [cond | gt]
+      pair through ``fused_groupnorm`` and ``fused_resblock``, within 1e-3;
+    - one steady-state training step of each domain (``fused_resblock``).
+    """
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.diffusion.sampling import overlapping_grid_corners
+    from wavedm_tpu_torch.inference.loader import build_restorer
+
+    t_phase = time.perf_counter()
+    image = synthetic_images(SEED, 1)
+    counts = {}
+    pix = variant_cfg("pixel", parallel__compute_dtype="bfloat16",
+                      parallel__fused_groupnorm=True,
+                      sampling__patch_micro_batch=PIXEL_MB)
+    glob = variant_cfg("global", parallel__fused_resblock=True)
+    lap_cfg = variant_cfg("lap")
+
+    def patches(cfg, h, w):
+        return len(overlapping_grid_corners(h, w, cfg.data.image_size,
+                                            cfg.sampling.grid_r))
+
+    k_pix = patches(pix, HEIGHT, WIDTH)
+    k_small = patches(pix, SMALL, SMALL)
+    k_glob = N_IMAGES * patches(glob, HEIGHT // 4, WIDTH // 4)
+    k_lap = patches(lap_cfg, HEIGHT // 4, WIDTH // 4)
+    variant_parity()
+    new = variant_kernel_rows(pix, lap_cfg, {
+        "pixel": PIXEL_MB, "pixel_small": k_small, "lap": k_lap})
+
+    # ---- pixel: 720x480 in bfloat16 through both kernel routes; float32
+    chunks = -(-k_pix // PIXEL_MB)
+    rest = build_restorer(pix, None, device="cuda")
+    n_pix = sum(p.numel() for p in rest.unet.parameters())
+    assert n_pix == VARIANT_PARAMS["pixel"], n_pix
+    unet_sd = rest.unet.state_dict()
+    # one UNet call of the chain: its first micro-batch at t = 499
+    p = pix.data.image_size
+    corners = overlapping_grid_corners(HEIGHT, WIDTH, p,
+                                       pix.sampling.grid_r)[:PIXEL_MB]
+    probe_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cond = torch.as_tensor(image, device=probe_gen.device).permute(
+        0, 3, 1, 2) * 2 - 1
+    probe = torch.cat([torch.cat([cond[:, :, i:i + p, j:j + p]
+                                  for i, j in corners]),
+                       torch.randn(len(corners), 3, p, p, generator=probe_gen,
+                                   device=probe_gen.device)], dim=1)
+    t_probe = torch.full((len(corners),), 499.0, device=probe_gen.device)
+    outs, eps = {}, {}
+    for route, cfg, n_timed in (
+            ("fused_groupnorm", pix, 1),
+            ("fused_resblock", variant_cfg(
+                "pixel", parallel__compute_dtype="bfloat16",
+                parallel__fused_resblock=True,
+                sampling__patch_micro_batch=PIXEL_MB), 1),
+            ("f32_fused_resblock", variant_cfg(
+                "pixel", parallel__fused_resblock=True,
+                sampling__patch_micro_batch=PIXEL_MB), 0)):
+        if route != "fused_groupnorm":
+            rest = build_restorer(cfg, unet_sd, device="cuda")
+        kind = ("fused_groupnorm" if route == "fused_groupnorm"
+                else "fused_resblock")
+        out, got, first_ms, ms, peak = variant_restore(
+            f"pixel {route}", rest, image,
+            site_launches(cfg, kind, VARIANT_STEPS * chunks), n_timed)
+        with torch.no_grad():
+            eps[route] = rest.unet(probe, t_probe)
+        del rest
+        outs[route] = out
+        counts[f"pixel_{route}"] = got
+        emit("variants", path="pixel", route=route,
+             dtype=cfg.parallel.compute_dtype, params_unet=n_pix,
+             patches=k_pix, micro_batch=PIXEL_MB, steps=VARIANT_STEPS,
+             launches=got, first_ms_per_image=first_ms, ms_per_image=ms,
+             peak_bytes=peak)
+    # one UNet call and the chain: each bfloat16 route against the float32
+    # one.  The two bfloat16 routes round at different points at 64 of the
+    # 71 norm sites, so they part by about as much as either parts from
+    # float32 (the flagship's production chain, from the HFRM band, keeps
+    # them within that gap; this chain starts from noise): each route is
+    # held within twice the other's distance to float32, which a wrong
+    # kernel result at any site would exceed by far.
+    def dist(a, b):
+        return float((a - b).abs().max())
+
+    ref = "f32_fused_resblock"
+    fwd = [dist(eps[r], eps[ref]) for r in ("fused_groupnorm",
+                                            "fused_resblock")]
+    gaps = [dist(outs[r], outs[ref]) for r in ("fused_groupnorm",
+                                               "fused_resblock")]
+    emit("variants", path="pixel",
+         forward_fused_resblock_vs_fused_groupnorm=dist(
+             eps["fused_resblock"], eps["fused_groupnorm"]),
+         forward_fused_groupnorm_vs_f32=fwd[0],
+         forward_fused_resblock_vs_f32=fwd[1],
+         chain_fused_resblock_vs_fused_groupnorm=dist(
+             outs["fused_resblock"], outs["fused_groupnorm"]),
+         chain_mean_abs_diff=float((outs["fused_resblock"]
+                                    - outs["fused_groupnorm"]).abs().mean()),
+         chain_fused_groupnorm_vs_f32=gaps[0],
+         chain_fused_resblock_vs_f32=gaps[1])
+    assert max(fwd) <= 2 * min(fwd), fwd
+    assert max(gaps) <= 2 * min(gaps), gaps
+    del outs, eps, probe, cond
+
+    y0, x0 = (HEIGHT - SMALL) // 2, (WIDTH - SMALL) // 2
+    small = image[:, y0:y0 + SMALL, x0:x0 + SMALL]
+    small_outs = {}
+    for route in ("fused_groupnorm", "fused_resblock"):
+        cfg = variant_cfg("pixel", **{f"parallel__{route}": True})
+        rest = build_restorer(cfg, unet_sd, device="cuda")
+        # float32 through cuDNN takes seconds here: its first run only
+        out, got, first_ms, ms, peak = variant_restore(
+            f"pixel_small {route}", rest, small,
+            site_launches(cfg, route, VARIANT_STEPS),
+            int(route == "fused_resblock"))
+        del rest
+        small_outs[route] = out
+        counts[f"pixel_small_{route}"] = got
+        emit("variants", path="pixel", image=[SMALL, SMALL], route=route,
+             dtype="float32", patches=k_small, steps=VARIANT_STEPS,
+             launches=got, first_ms_per_image=first_ms, ms_per_image=ms,
+             peak_bytes=peak)
+    diff = float((small_outs["fused_resblock"]
+                  - small_outs["fused_groupnorm"]).abs().max())
+    emit("variants", path="pixel", image=[SMALL, SMALL],
+         fused_resblock_vs_fused_groupnorm=diff, tol_abs=1e-3)
+    assert diff <= 1e-3, diff
+    del unet_sd, small_outs
+    torch.cuda.empty_cache()
+
+    # ---- global attention: two images, B = 2, unbatched and micro-batched
+    images = synthetic_images(SEED)
+    rest = build_restorer(glob, None, None, device="cuda")
+    n_glob = sum(p.numel() for p in rest.unet.parameters())
+    assert n_glob == VARIANT_PARAMS["global"], n_glob
+    unet_sd, hfrm_sd = rest.unet.state_dict(), rest.hfrm.state_dict()
+    glob_outs = {}
+    for mb in (0, 16):
+        if mb:
+            rest = build_restorer(variant_cfg(
+                "global", parallel__fused_resblock=True,
+                sampling__patch_micro_batch=mb), unet_sd, hfrm_sd,
+                device="cuda")
+        calls = VARIANT_STEPS * (-(-k_glob // mb) if mb else 1)
+        want = dict(site_launches(glob, "fused_resblock", calls),
+                    wavelet_dec=2, wavelet_rec=1)
+        out, got, first_ms, ms, peak = variant_restore(
+            f"global mb{mb}", rest, images, want)
+        del rest
+        glob_outs[mb] = out
+        counts[f"global_mb{mb}"] = got
+        emit("variants", path="global", route="fused_resblock",
+             dtype="float32", params_unet=n_glob, images=N_IMAGES,
+             patches=k_glob, micro_batch=mb, steps=VARIANT_STEPS,
+             launches=got, first_ms_per_image=first_ms, ms_per_image=ms,
+             peak_bytes=peak)
+    diff = float((glob_outs[16] - glob_outs[0]).abs().max())
+    emit("variants", path="global", micro_batch16_vs_unbatched=diff,
+         tol_abs=1e-3)
+    assert diff <= 1e-3, diff
+    del unet_sd, hfrm_sd, glob_outs
+    torch.cuda.empty_cache()
+
+    # ---- Laplacian: one [cond | gt] pair, both kernel routes
+    pair = np.concatenate([image, synthetic_images(SEED + 1, 1)], axis=-1)
+    lap_outs, unet_sd = {}, None
+    for route in ("fused_groupnorm", "fused_resblock"):
+        cfg = variant_cfg("lap", **{f"parallel__{route}": True})
+        rest = build_restorer(cfg, unet_sd, device="cuda")
+        if unet_sd is None:
+            unet_sd = rest.unet.state_dict()
+            n_lap = sum(p.numel() for p in rest.unet.parameters())
+            assert n_lap == VARIANT_PARAMS["lap"], n_lap
+        out, got, first_ms, ms, peak = variant_restore(
+            f"lap {route}", rest, pair, site_launches(cfg, route,
+                                                      VARIANT_STEPS))
+        del rest
+        lap_outs[route] = out
+        counts[f"lap_{route}"] = got
+        emit("variants", path="lap", route=route, dtype="float32",
+             params_unet=n_lap, patches=k_lap, steps=VARIANT_STEPS,
+             launches=got, first_ms_per_image=first_ms, ms_per_image=ms,
+             peak_bytes=peak)
+    diff = float((lap_outs["fused_resblock"] - lap_outs["fused_groupnorm"])
+                 .abs().max())
+    emit("variants", path="lap", fused_resblock_vs_fused_groupnorm=diff,
+         tol_abs=1e-3)
+    assert diff <= 1e-3, diff
+    del unet_sd, lap_outs
+    torch.cuda.empty_cache()
+
+    # ---- one steady-state training step of each domain
+    for name in ("pixel", "global", "lap"):
+        counts[f"train_{name}"] = variant_train(
+            name, variant_cfg(name, parallel__fused_resblock=True))
+
+    for name, (row, run) in new.items():
+        launches[name] = counts[run].get(name.split("@")[0], 0)
+        assert launches[name] > 0, f"kernel {name} never ran on its path"
+        rows[name] = row
+        emit("variants", kernel=name, launches=launches[name],
+             per="call (wavelet) or UNet forward",
+             **{k: v for k, v in row.items() if k not in ("source",
+                                                          "replaces")})
+    emit("variants", seconds=time.perf_counter() - t_phase)
+
+
 def gn_sweep(cfg, n_patches):
     """The GroupNorm kernel under each launch plan at every flagship site
     shape, swish on (the chosen plan also with swish off): the share of its
@@ -1950,8 +2515,8 @@ def partial(phases, ref_cfg, prod_cfg):
     versions, timed), ``restore`` (the production restore through
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
-    training phases ``train_data``, ``train_hfrm`` and ``pipeline``, and
-    ``serve``."""
+    training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
+    ``serve`` and ``variants``."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
@@ -1967,6 +2532,8 @@ def partial(phases, ref_cfg, prod_cfg):
         pipeline_phase(scratch)
     if "serve" in phases:
         serve_phase(scratch)
+    if "variants" in phases:
+        variants_phase(scratch, {})
     if "restore" in phases:
         from wavedm_tpu_torch.inference.loader import build_restorer
 
@@ -1992,7 +2559,7 @@ def main(argv=None):
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
                     "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
-                    "serve to run alone; no final lines")
+                    "serve,variants to run alone; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -2051,7 +2618,10 @@ def main(argv=None):
         out, first_ms, got = counted_restore(rest, images, want, name,
                                              launches)
         peak = torch.cuda.max_memory_allocated()
-        _, _, steady_ms = restore_timed(rest, images)
+        # the reference profile's float32 runs take seconds: its counted
+        # run is its time
+        steady_ms = (first_ms if name == "reference"
+                     else restore_timed(rest, images)[2])
         outs[name] = out, steady_ms
         emit("restore", profile=name, steps=steps,
              dtype=cfg.parallel.compute_dtype, images=N_IMAGES,
@@ -2115,6 +2685,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     eval_phase(launches)
     serve_phase(launches)
+    variants_phase(launches, rows)
 
     # the reference profile (float32, TF32 off, 25 steps from noise) with
     # the fused kernel at all 44 pairs, against the reference restore with
@@ -2132,7 +2703,7 @@ def main(argv=None):
             "wavelet_dec": 2, "wavelet_rec": 1}
     fr_ref_out, fr_ref_first_ms, got = counted_restore(
         fr_ref, images, want, "restore_fused_resblock reference", launches)
-    _, _, fr_ref_ms = restore_timed(fr_ref, images)
+    fr_ref_ms = fr_ref_first_ms         # seconds a run: its counted run
     del fr_ref
     torch.cuda.empty_cache()
     fr_ref_diff = float((fr_ref_out - ref_out).abs().max())

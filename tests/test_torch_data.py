@@ -201,10 +201,18 @@ def test_a_decode_error_in_the_split_stops_the_epoch(tmp_path):
 
 
 def test_global_attn_crops_are_refused(data_dir):
+    """The device cache refuses global_attn crops, as JAX's does: they are
+    streamed with each image's whole, LANCZOS-resized to 720x480 (the
+    global crops' parity with JAX is in tests/test_torch_global_attn.py)."""
     _, cfg = _configs(_raw(data_dir))
     cfg.data.global_attn = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        next(raindrop.RainDrop(cfg).train_batches(0))
+    cfg.data.device_cache = True
+    data = raindrop.RainDrop(cfg, device="cpu")
+    crops, totals = next(data.train_batches(0))
+    assert data._cache is None
+    assert isinstance(crops, np.ndarray)
+    assert crops.shape[0] == cfg.training.batch_size * cfg.training.patch_n
+    assert totals.shape == (cfg.training.batch_size, 480, 720, 3)
 
 
 def test_eval_samples_stripe_over_processes(data_dir):

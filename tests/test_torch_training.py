@@ -341,8 +341,13 @@ def test_grad_accum_equals_one_pass(unet_params):
 
 
 def test_unported_domains_raise():
-    for raw in (_raw(data={"wavelet": False}),
-                _raw(data={"wavelet": False, "lap": True})):
+    """The pixel, global and Laplacian domains are ported
+    (tests/test_torch_pixel_path.py and its siblings); the switches no
+    shipped config turns on still raise."""
+    pixel = {"wavelet": False, "image_size": 32}
+    for raw in (_raw(data={**pixel, "use_fft": True}),
+                _raw(data={**pixel, "use_window": True}),
+                _raw(data={"wavelet_in_unet": True})):
         _, cfg = _configs(raw)
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
             DiffusionTrainer(cfg, device="cpu")

@@ -9,7 +9,11 @@ The port's counterpart of ``scripts/eval_diffusion.py``:
   python -m wavedm_tpu_torch.cli.eval_diffusion --config production --smoke
 
 ``--config`` takes a YAML file or a built-in profile (``reference``,
-``production``); a machine without ``yaml`` needs the latter.
+``production``); a machine without ``yaml`` needs the latter.  Every
+shipped config runs: the wavelet path (the only one that reads
+``--hfrm-ckpt``), the pixel path (``raindrop.yaml``), global attention
+(``raindrop_wavelet_global.yaml``) and the Laplacian path
+(``raindrop_lap.yaml``, which restores from each [cond | gt] pair).
 ``--resume`` takes a reference ``.pth``/``.pth.tar`` or the port's own
 checkpoint; without it the weights are random (seeded).  Runs on the card
 unless ``--device`` names another.
@@ -26,7 +30,8 @@ __all__ = ["main"]
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True,
-                   help="YAML config, or 'reference' / 'production'")
+                   help="YAML config, or a built-in profile (reference, "
+                   "production, pixel, global, lap)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override, repeatable (YAML-parsed value)")

@@ -8,9 +8,13 @@ the on-device restoration, PNG outputs ``{name}_restored.png``.
       --resume <ckpt> --hfrm-ckpt <ckpt> --input 'photos/*.png' --out restored/
 
 ``--config`` takes a YAML file or a built-in profile (``reference``,
-``production``).  Inputs must be PNG (other formats raise).  Without
-``--resume`` the weights are random (seeded).  Runs on the card unless
-``--device`` names another.
+``production``): the wavelet, pixel (``raindrop.yaml``) and
+global-attention (``raindrop_wavelet_global.yaml``) paths; only the
+wavelet path reads ``--hfrm-ckpt``.  The Laplacian path
+(``raindrop_lap.yaml``) restores from [cond | gt] pairs and is refused
+here (``cli/eval_diffusion.py`` runs it).  Inputs must be PNG (other
+formats raise).  Without ``--resume`` the weights are random (seeded).
+Runs on the card unless ``--device`` names another.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ __all__ = ["list_inputs", "main"]
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True,
-                   help="YAML config, or 'reference' / 'production'")
+                   help="YAML config, or a built-in profile (reference, "
+                   "production, pixel, global, lap)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override, repeatable (YAML-parsed value)")
@@ -74,11 +79,13 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.data.raindrop import restore_input
     from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.inference.restoration import refuse_lap
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
     from wavedm_tpu_torch.utils.images import read_png, save_image
 
-    acquire_gpu_lock("restore", args.device)
     cfg = load_config(args.config, args.overrides)
+    refuse_lap(cfg, "cli.restore")
+    acquire_gpu_lock("restore", args.device)
     for name, val in (("t_start", args.t_start),
                       ("sampling_timesteps", args.sampling_timesteps),
                       ("init_ll", args.init_ll),

@@ -12,7 +12,9 @@ one restoration (``inference/server.py``).
   curl -s localhost:8000/healthz
 
 ``--config`` takes a YAML file or a built-in profile (``reference``,
-``production``).  ``--resume`` / ``--hfrm-ckpt`` take reference
+``production``): the wavelet, pixel and global-attention paths (the
+Laplacian path needs [cond | gt] pairs and is refused; only the wavelet
+path reads ``--hfrm-ckpt``).  ``--resume`` / ``--hfrm-ckpt`` take reference
 ``.pth``/``.pth.tar`` files, the port's own checkpoints, or a file
 converted from the JAX package's Orbax checkpoints
 (``cli/convert_orbax.py``); ``--resume ''`` serves random (seeded)
@@ -30,7 +32,8 @@ __all__ = ["main"]
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True,
-                   help="YAML config, or 'reference' / 'production'")
+                   help="YAML config, or a built-in profile (reference, "
+                   "production, pixel, global, lap)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override, repeatable (YAML-parsed value)")

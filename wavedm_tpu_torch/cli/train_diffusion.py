@@ -1,4 +1,4 @@
-"""Train the wavelet-domain conditional diffusion UNet (stage 2).
+"""Train the conditional diffusion UNet (stage 2).
 
 The port's counterpart of ``scripts/train_diffusion.py``:
 
@@ -13,9 +13,14 @@ Without ``--smoke`` it trains on random crops of
 on the card) and every ``training.validation_freq`` steps restores two
 pairs of ``<data_dir>/raindrop/raindrop_test`` with the UNet's current
 (not EMA) weights, printing PSNR and SSIM and dumping the images under
-``<val-folder>/step<N>``; validation needs HFRM weights and is skipped
-without them.  ``--smoke`` trains on synthetic crops assembled as the JAX
-script does.  Runs on the card unless ``--device`` names another.
+``<val-folder>/step<N>``; on the wavelet path validation needs HFRM
+weights and is skipped without them.  ``--smoke`` trains on synthetic
+crops assembled as the JAX script does.  Every shipped config trains: the
+wavelet, pixel (``raindrop.yaml``), global-attention
+(``raindrop_wavelet_global.yaml``: batches carry each image's 720x480
+whole, and ``data.device_cache`` is not used) and Laplacian
+(``raindrop_lap.yaml``) domains.  Runs on the card unless ``--device``
+names another.
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--smoke", action="store_true",
                    help="Synthetic data, 20 steps")
     p.add_argument("--hfrm-ckpt", default="",
-                   help="Frozen HFRM .pth checkpoint (needed when "
-                        "use_gt_in_train=False)")
+                   help="Frozen HFRM .pth checkpoint (wavelet path: needed "
+                        "when use_gt_in_train=False and for validation)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
@@ -64,7 +69,9 @@ def smoke_batches(cfg: Config, n_crops: Optional[int] = None,
                   ) -> Callable[[int], Iterator[np.ndarray]]:
     """batch_iter_fn for :meth:`DiffusionTrainer.fit`: per epoch,
     ``n_batches`` batches of ``n_crops`` (default ``training.patch_n``)
-    random (P, P, 6) [cond | gt] crops of one synthetic 720x480 pair."""
+    random (P, P, 6) [cond | gt] crops of one synthetic 720x480 pair; with
+    ``data.global_attn`` each comes with that pair's (1, 480, 720, 3) cond
+    image as its whole image."""
     from wavedm_tpu_torch.data.synthetic import SyntheticPairs
 
     src = SyntheticPairs(n_images=4, seed=cfg.training.seed)
@@ -81,7 +88,7 @@ def smoke_batches(cfg: Config, n_crops: Optional[int] = None,
                 x = rng.integers(0, cond.shape[1] - p)
                 crops[k, ..., :3] = cond[y:y + p, x:x + p]
                 crops[k, ..., 3:] = gt[y:y + p, x:x + p]
-            yield crops
+            yield (crops, cond[None]) if cfg.data.global_attn else crops
 
     return batches
 
@@ -94,20 +101,22 @@ def make_validate(trainer, dataset, hfrm_weights,
     """validate_fn for :meth:`DiffusionTrainer.fit`: restore the first
     ``VAL_PAIRS`` eval pairs of ``dataset`` with the training UNet's current
     weights through one ``DiffusiveRestoration`` kept across calls, print
-    PSNR and SSIM, dump the images under ``<val_folder>/step<N>``.  Skips
-    when there are no HFRM weights (``hfrm_weights`` None and no frozen
-    HFRM in the trainer)."""
+    PSNR and SSIM, dump the images under ``<val_folder>/step<N>``.  On the
+    wavelet path it skips when there are no HFRM weights (``hfrm_weights``
+    None and no frozen HFRM in the trainer)."""
     from wavedm_tpu_torch.inference.loader import build_hfrm
     from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 
     box = {}
+    need_hfrm = trainer.cfg.data.wavelet
 
     def validate(state, step: int) -> None:
-        if trainer.hfrm is None and hfrm_weights is None:
+        if need_hfrm and trainer.hfrm is None and hfrm_weights is None:
             print(f"[validate @ {step}] skipped: no HFRM checkpoint")
             return
         if "r" not in box:
-            hfrm = (trainer.hfrm if trainer.hfrm is not None else
+            hfrm = (None if not need_hfrm else trainer.hfrm
+                    if trainer.hfrm is not None else
                     build_hfrm(trainer.cfg, hfrm_weights, trainer.device))
             box["r"] = DiffusiveRestoration(trainer.cfg, state.model, hfrm,
                                             device=trainer.device)

@@ -31,7 +31,8 @@ __all__ = ["main"]
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True,
-                   help="YAML config, or 'reference' / 'production'")
+                   help="YAML config, or a built-in profile (reference, "
+                   "production, pixel, global, lap)")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="SECTION.KEY=VALUE",
                    help="config override, repeatable (YAML-parsed value)")

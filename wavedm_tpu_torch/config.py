@@ -4,9 +4,9 @@ Same sections, keys, defaults and validation as ``wavedm_tpu/config.py``, so
 the YAML files under ``wavedm_tpu/configs/`` load unchanged.  ``yaml`` is
 imported only inside the YAML loaders; everything the restoration path
 runs builds its ``Config`` in code.  Where ``yaml`` is not installed,
-:func:`load_config` still takes the two built-in profiles by name
-(``reference``, ``production``) and ``--set`` values as JSON, or as plain
-strings.
+:func:`load_config` still takes the built-in profiles by name
+(``reference``, ``production``, and ``pixel``, ``global`` and ``lap`` for
+the variant configs) and ``--set`` values as JSON, or as plain strings.
 """
 
 from __future__ import annotations
@@ -331,7 +331,7 @@ def apply_overrides(raw: dict, overrides) -> dict:
 
 def load_config(path: str, overrides=()) -> Config:
     """Load and validate a YAML config file (the reference's schema), or a
-    built-in profile by name (``reference``, ``production``), with
+    built-in profile by name (a key of ``PROFILES``), with
     ``section.key=value`` overrides applied before validation."""
     if path in PROFILES:
         raw = dataclasses.asdict(PROFILES[path]())
@@ -370,4 +370,38 @@ def production_profile() -> Config:
     return cfg.validate()
 
 
-PROFILES = {"reference": reference_profile, "production": production_profile}
+def pixel_profile() -> Config:
+    """``raindrop.yaml``: pixel-space diffusion, 128x128 crops, 6 UNet input
+    channels, ch_mult 1,1,2,2,4,4, 20 crops a step, no HFRM."""
+    cfg = Config()
+    cfg.data = DataConfig(image_size=128, patch_size=128, wavelet=False)
+    cfg.model = ModelConfig(in_channels=3, use_other_channels=False,
+                            other_channels_begin=0, use_gt_in_train=False,
+                            ch_mult=(1, 1, 2, 2, 4, 4))
+    cfg.training = TrainingConfig(patch_n=20, n_epochs=12000,
+                                  snapshot_freq=5000, validation_freq=5000)
+    return cfg.validate()
+
+
+def global_profile() -> Config:
+    """``raindrop_wavelet_global.yaml``: the reference profile with the
+    global-attention UNet (``data.global_attn``)."""
+    cfg = reference_profile()
+    cfg.data.global_attn = True
+    return cfg.validate()
+
+
+def lap_profile() -> Config:
+    """``raindrop_lap.yaml``: the Laplacian path, diffusion on the 16x16
+    coarse level of 64x64 crops (64x64 patches of the coarse level at
+    eval), ch_mult 1,2,2,4, 20 crops a step."""
+    cfg = pixel_profile()
+    cfg.data.image_size = cfg.data.patch_size = 64
+    cfg.data.lap = True
+    cfg.model.ch_mult = (1, 2, 2, 4)
+    return cfg.validate()
+
+
+PROFILES = {"reference": reference_profile, "production": production_profile,
+            "pixel": pixel_profile, "global": global_profile,
+            "lap": lap_profile}

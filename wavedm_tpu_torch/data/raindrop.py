@@ -11,7 +11,10 @@ as PNG (``utils/images.read_png``).
   :meth:`RainDrop.train_batches` stacks ``batch_size`` samples, streamed
   through a depth-2 thread prefetcher or gathered on the device from the
   decoded split (``data.device_cache``, ``data/device_cache.py``).  Both
-  give the same batches, equal to the JAX package's PIL path.
+  give the same batches, equal to the JAX package's PIL path.  With
+  ``data.global_attn`` a sample also carries its whole input image,
+  LANCZOS-resized to 720x480 (once per image, not per crop), and a batch
+  is (crops, totals); these batches are always streamed, as in JAX.
 - Eval: each pair at the canonical eval geometry (720x480, capped at 1024,
   rounded up to /16), ``resize_lanczos``-resized where it is not there.
 - Each process takes every ``process_count``-th index from
@@ -36,6 +39,9 @@ from wavedm_tpu_torch.utils.images import read_png, resize_lanczos
 
 __all__ = ["eval_resize_dims", "fit_image", "restore_input",
            "RainDropDataset", "RainDrop"]
+
+
+TOTAL_SIZE = (720, 480)     # (w, h) of the global UNet's whole image
 
 
 def _list_pairs(root: str) -> Tuple[List[str], List[str]]:
@@ -95,18 +101,21 @@ class RainDropDataset:
 
     def __init__(self, root: str, patch_size: int, patch_n: int,
                  parse_patches: bool = True, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, return_total: bool = False):
         self.inputs, self.gts = _list_pairs(root)
         self.patch_size = patch_size
         self.patch_n = patch_n
         self.parse_patches = parse_patches
+        self.return_total = return_total
         self.indices = list(range(process_index, len(self.inputs),
                                   process_count))
 
     def __len__(self) -> int:
         return len(self.indices)
 
-    def _train_sample(self, idx: int, rng: np.random.Generator) -> np.ndarray:
+    def _train_sample(self, idx: int, rng: np.random.Generator):
+        """(patch_n, P, P, 6) crops; with ``return_total`` also the
+        (1, 480, 720, 3) whole input image."""
         inp, gt = read_png(self.inputs[idx]), read_png(self.gts[idx])
         h, w = inp.shape[:2]
         p = self.patch_size
@@ -116,7 +125,11 @@ class RainDropDataset:
         for k, (y, x) in enumerate(zip(ys, xs)):
             crops[k, ..., :3] = inp[y:y + p, x:x + p]
             crops[k, ..., 3:] = gt[y:y + p, x:x + p]
-        return crops.astype(np.float32) / 255.0
+        crops = crops.astype(np.float32) / 255.0
+        if self.return_total:
+            total = resize_lanczos(inp, TOTAL_SIZE).astype(np.float32) / 255.0
+            return crops, total[None]
+        return crops
 
     def _eval_sample(self, idx: int) -> Tuple[np.ndarray, str]:
         return _eval_sample(self.inputs[idx], self.gts[idx])
@@ -194,19 +207,20 @@ class RainDrop:
                       prefetch: bool = True) -> Iterator:
         """(batch * patch_n, P, P, 6) float32 crop batches in [0, 1] for
         one epoch: numpy arrays, or tensors on the device with
-        ``data.device_cache``.  A last partial batch is dropped."""
+        ``data.device_cache``.  With ``data.global_attn``, (crops,
+        (batch, 480, 720, 3) totals) pairs of numpy arrays, streamed even
+        when ``data.device_cache`` is set.  A last partial batch is
+        dropped."""
         cfg = self.cfg
-        if cfg.data.global_attn:
-            raise NotImplementedError(
-                "global_attn training crops (the whole-image tensor) are "
-                "not ported: ROADMAP item 15")
+        use_global = cfg.data.global_attn
         ds = RainDropDataset(self.train_dir(), cfg.data.patch_size,
                              cfg.training.patch_n,
                              process_index=self.process_index,
-                             process_count=self.process_count)
+                             process_count=self.process_count,
+                             return_total=use_global)
         bs = batch_size or cfg.training.batch_size
         seed = cfg.training.seed
-        if cfg.data.device_cache:
+        if cfg.data.device_cache and not use_global:
             from wavedm_tpu_torch.data.device_cache import build_pair_cache
 
             if self._cache is None:
@@ -227,10 +241,14 @@ class RainDrop:
         if prefetch:
             it = iter(_Prefetcher(it))
         buf = []
-        for crops in it:
-            buf.append(crops)
+        for sample in it:
+            buf.append(sample)
             if len(buf) == bs:
-                yield np.concatenate(buf, axis=0)
+                if use_global:
+                    yield (np.concatenate([c for c, _ in buf], axis=0),
+                           np.concatenate([t for _, t in buf], axis=0))
+                else:
+                    yield np.concatenate(buf, axis=0)
                 buf = []
 
     def eval_samples(self) -> Iterator[Tuple[np.ndarray, str]]:

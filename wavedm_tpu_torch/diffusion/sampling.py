@@ -12,8 +12,15 @@ deterministic), and ``pred_type`` "eps" or "v" (a velocity output becomes
 the implied epsilon, on the tiled path after the overlap average).  With
 ``eta`` > 0 each step adds noise drawn from an explicit
 ``torch.Generator``, or taken from an injected ``step_noise`` of shape
-(T, B, C, H, W).  ``use_fft``, ``use_global`` and ``mesh`` of the JAX
-sampler are not ported and raise.
+(T, B, C, H, W).  ``use_fft`` and ``mesh`` of the JAX sampler are not
+ported and raise.
+
+With ``use_global`` the model also takes the B whole images and the image
+of each patch it is handed, so every patch attends to its own image's
+tokens, in micro-batches too.  The JAX sampler hands each micro-batch of
+``mb`` patches all B images and lets the model spread them over the chunk
+by position (``mb / B`` patches each), which gives patches another
+image's tokens whenever B > 1 (ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -221,15 +228,18 @@ def make_overlapping_sampler(
     """Build the tiled sampler for a fixed (h, w) geometry.
 
     The returned ``sample(x_init, x_cond, x_other=None, generator=None,
-    step_noise=None)`` takes NCHW (B, pred, h, w), (B, Cc, h, w) and
-    (B, Co, h, w) tensors and returns ``(x_final, x0_preds)``: x0_preds is
-    (T, B, pred, h, w), or (1, B, pred, h, w) holding only step ``x0_keep``
-    when that is set.  ``model_fn(x, t)`` maps (N, Cin, p, p) and (N,)
+    step_noise=None, x_global=None)`` takes NCHW (B, pred, h, w),
+    (B, Cc, h, w) and (B, Co, h, w) tensors and returns
+    ``(x_final, x0_preds)``: x0_preds is (T, B, pred, h, w), or
+    (1, B, pred, h, w) holding only step ``x0_keep`` when that is set.
+    ``model_fn(x, t)`` maps (N, Cin, p, p) and (N,)
     float32 timesteps to the (N, pred, p, p) float32 output; with
     ``patch_micro_batch`` = mb > 0 it sees chunks of at most mb patches.
+    With ``use_global``, ``sample`` also takes ``x_global`` (B, Cg, Hg, Wg)
+    and the model is called as ``model_fn(x, t, x_global, index)``, where
+    ``index`` (N,) holds the image of each of its N patches.
     """
     for name, value, item in (("use_fft", use_fft, 15),
-                              ("use_global", use_global, 15),
                               ("mesh", mesh is not None, 13)):
         if value:
             raise NotImplementedError(
@@ -259,21 +269,33 @@ def make_overlapping_sampler(
             acc[:, :, i:i + p, j:j + p] += et_b[:, k]
         return acc / counts
 
-    def apply_model(inp: torch.Tensor, t: float) -> torch.Tensor:
-        tt = torch.full((inp.shape[0],), t, dtype=torch.float32,
-                        device=inp.device)
+    def apply_model(inp: torch.Tensor, t: float,
+                    x_global: Optional[torch.Tensor]) -> torch.Tensor:
+        n = inp.shape[0]
+        tt = torch.full((n,), t, dtype=torch.float32, device=inp.device)
+        if use_global:
+            index = torch.arange(n, device=inp.device) // len(corners)
+
+            def call(sl):
+                return model_fn(inp[sl], tt[sl], x_global, index[sl])
+        else:
+            def call(sl):
+                return model_fn(inp[sl], tt[sl])
         mb = patch_micro_batch
-        if not mb or inp.shape[0] <= mb:
-            return model_fn(inp, tt)
-        return torch.cat([model_fn(inp[s:s + mb], tt[s:s + mb])
-                          for s in range(0, inp.shape[0], mb)])
+        if not mb or n <= mb:
+            return call(slice(None))
+        return torch.cat([call(slice(s, s + mb)) for s in range(0, n, mb)])
 
     @torch.no_grad()
     def sample(x_init: torch.Tensor, x_cond: torch.Tensor,
                x_other: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
-               step_noise: Optional[torch.Tensor] = None):
+               step_noise: Optional[torch.Tensor] = None,
+               x_global: Optional[torch.Tensor] = None):
         b = x_init.shape[0]
+        if use_global and (x_global is None or x_global.shape[0] != b):
+            raise ValueError("use_global: sample needs x_global, one whole "
+                             f"image for each of the {b} images")
         counts = torch.as_tensor(counts_np, device=x_init.device)
         noise = _noise_source(eta, generator, step_noise, len(steps), x_init)
         static_p = [gather(x_cond)]
@@ -283,7 +305,7 @@ def make_overlapping_sampler(
         x0_t = torch.zeros_like(x_init) if solver == "dpmpp2m" else None
         for i, s in enumerate(steps):
             inp = torch.cat([static_p[0], gather(xt)] + static_p[1:], dim=1)
-            et = scatter_mean(apply_model(inp, s["t"]), b, counts)
+            et = scatter_mean(apply_model(inp, s["t"], x_global), b, counts)
             xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
             if keep_idx is None:
                 x0s.append(x0_t)

@@ -2,9 +2,10 @@
 
 ``build_restorer(cfg, unet_sd, hfrm_sd, device=None)`` assembles a
 :class:`DiffusiveRestoration` from two state_dicts (or reference
-``.pth``/``.pth.tar`` paths).  ``None`` for either builds that model with
-random weights drawn from ``cfg.training.seed`` by a ``torch.Generator``
-(smoke runs and tests).  Models are built on the meta device first, so no
+``.pth``/``.pth.tar`` paths); the pixel and Laplacian paths take no
+HFRM.  ``None`` for either builds that model with random weights drawn
+from ``cfg.training.seed`` by a ``torch.Generator`` (smoke runs and
+tests).  Models are built on the meta device first, so no
 memory is touched before the weights land on the target device.
 ``build_unet(..., train=True)`` gives the trainable UNet: float32
 parameters cast at use, train mode, gradients on.  A UNet checkpoint path
@@ -29,6 +30,7 @@ import torch.nn as nn
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.hfrm import HFRM
 from wavedm_tpu_torch.models.unet import DiffusionUNet
+from wavedm_tpu_torch.models.unet_global import DiffusionUNetGlobal
 from wavedm_tpu_torch.utils.convert import load_torch_checkpoint
 from wavedm_tpu_torch.utils.device import resolve_device
 
@@ -47,7 +49,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     gives the same network whatever the compute dtype."""
     for m in module.modules():
         params = dict(m.named_parameters(recurse=False))
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in params.values():
                 draw = torch.empty(p.shape, dtype=torch.float32,
@@ -83,9 +85,12 @@ def _materialize(model: nn.Module, weights: Weights, device: torch.device,
 
 def build_unet(cfg: Config, weights: Weights = None, device=None,
                ema: bool = False, train: bool = False) -> DiffusionUNet:
+    """The config's UNet: ``DiffusionUNetGlobal`` with ``data.global_attn``,
+    else ``DiffusionUNet``."""
     device = resolve_device(device)
+    cls = DiffusionUNetGlobal if cfg.data.global_attn else DiffusionUNet
     with torch.device("meta"):
-        unet = DiffusionUNet.from_config(cfg, keep_f32_params=train)
+        unet = cls.from_config(cfg, keep_f32_params=train)
     return _materialize(unet, weights, device, cfg.training.seed, ema, train,
                         cfg.training.pred_type)
 
@@ -97,13 +102,15 @@ def build_hfrm(cfg: Config, weights: Weights = None, device=None) -> HFRM:
     return _materialize(hfrm, weights, device, cfg.training.seed + 1)
 
 
-def build_restorer(cfg: Config, unet_sd: Weights, hfrm_sd: Weights,
+def build_restorer(cfg: Config, unet_sd: Weights, hfrm_sd: Weights = None,
                    device=None, ema: bool = False):
     """The restoration runner for a validated config on ``device`` (the
-    card when None).  ``ema`` picks the EMA shadow of a UNet checkpoint."""
+    card when None).  ``ema`` picks the EMA shadow of a UNet checkpoint.
+    Only the wavelet path builds the HFRM (random weights when ``hfrm_sd``
+    is None); the pixel and Laplacian paths ignore ``hfrm_sd``."""
     from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 
     device = resolve_device(device)
     unet = build_unet(cfg, unet_sd, device, ema=ema)
-    hfrm = build_hfrm(cfg, hfrm_sd, device)
+    hfrm = build_hfrm(cfg, hfrm_sd, device) if cfg.data.wavelet else None
     return DiffusiveRestoration(cfg, unet, hfrm, device=device)

@@ -1,7 +1,7 @@
-"""Full-image diffusive restoration on the wavelet path, and its
-evaluation loop.
+"""Full-image diffusive restoration on the wavelet, pixel and Laplacian
+paths, and its evaluation loop.
 
-For a batch of (B, H, W, 3) degraded images in [0, 1]:
+The wavelet path, for a batch of (B, H, W, 3) degraded images in [0, 1]:
 
   pixels -> [-1,1] -> Haar DWT (scale 2) -> 48 cond channels at H/4 x W/4
   HFRM(pixels) -> [-1,1] -> DWT -> the 45 high-frequency channels
@@ -10,6 +10,16 @@ For a batch of (B, H, W, 3) degraded images in [0, 1]:
   ``x0_pred_index``; or, with ``sampling.whole_image``, over the whole
   wavelet image reflect-padded to the UNet's 2**(levels-1) -> final x
   [diffusion LL(3) | HFRM HF(45)] -> IWT -> [0,1]
+
+The pixel path (``data.wavelet: false``) runs the chain on the [-1,1]
+pixels themselves, with no HFRM.  The Laplacian path (``data.lap``) takes
+the (B, H, W, 6) [cond | gt] pair, decomposes it with the 2-level Gauss
+pyramid, runs the chain on the coarse cond band at H/4 x W/4 and
+reconstructs with the degraded high bands and the ground truth's low band:
+both quirks of the reference, which the JAX package keeps (the learned
+translator never reaches the restored image).  With ``data.global_attn``
+the UNet also sees the whole image: the DWT of the cond pixels on the
+wavelet path, the [-1,1] cond pixels on the pixel path.
 
 All of it stays on the device; the B images run as one (B*K)-patch UNet
 batch per step.  Tensors are NCHW inside; the public entry points take and
@@ -35,7 +45,8 @@ from wavedm_tpu_torch.diffusion.schedules import (ddim_timesteps,
 from wavedm_tpu_torch.inference.loader import resolve_device
 from wavedm_tpu_torch.ops.wavelet import wavelet_dec, wavelet_rec
 
-__all__ = ["data_transform", "inverse_data_transform", "DiffusiveRestoration"]
+__all__ = ["data_transform", "inverse_data_transform", "refuse_lap",
+           "DiffusiveRestoration"]
 
 
 def data_transform(x: torch.Tensor) -> torch.Tensor:
@@ -48,25 +59,41 @@ def inverse_data_transform(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
 
 
+def refuse_lap(cfg: Config, who: str) -> None:
+    """Raise for the Laplacian path in an entry point that restores lone
+    degraded images: that path takes its low band from the ground truth."""
+    if cfg.data.lap:
+        raise ValueError(
+            f"{who}: the Laplacian path (data.lap) restores from the "
+            "[cond|gt] pair and takes its low band from the ground truth, "
+            "which a lone degraded image does not have; evaluate pairs "
+            "with cli.eval_diffusion instead")
+
+
 class DiffusiveRestoration:
-    """Restoration runner for a fixed config (wavelet path).
+    """Restoration runner for a fixed config.
 
     Args:
       cfg: validated Config.
-      unet: the diffusion ``DiffusionUNet`` (eval mode, on ``device``).
-      hfrm: the frozen stage-1 ``HFRM``.
+      unet: the diffusion UNet (``DiffusionUNet``, or
+        ``DiffusionUNetGlobal`` with ``data.global_attn``; eval mode, on
+        ``device``).
+      hfrm: the frozen stage-1 ``HFRM`` on the wavelet path; None on the
+        pixel and Laplacian paths, which take none.
       device: where everything runs; the card when None (raises if there
         is none).
     """
 
-    def __init__(self, cfg: Config, unet: nn.Module, hfrm: nn.Module,
-                 device=None):
-        if not cfg.data.wavelet or cfg.data.wavelet_in_unet or cfg.data.lap:
-            raise NotImplementedError(
-                "only the wavelet restoration path is ported")
-        if cfg.data.global_attn:
-            raise NotImplementedError(
-                "global_attn sampling is not ported yet (ROADMAP item 15)")
+    def __init__(self, cfg: Config, unet: nn.Module,
+                 hfrm: Optional[nn.Module] = None, device=None):
+        d = cfg.data
+        for name, value in (("wavelet_in_unet", d.wavelet_in_unet),
+                            ("use_fft", d.use_fft)):
+            if value:
+                raise NotImplementedError(
+                    f"{name} restoration is not ported yet (ROADMAP item 15)")
+        if d.wavelet and hfrm is None:
+            raise ValueError("the wavelet path requires a frozen HFRM")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.unet, self.hfrm = unet, hfrm
@@ -103,27 +130,30 @@ class DiffusiveRestoration:
         return base_ll * torch.sqrt(a).item() + noise * sqrt_1ma
 
     def _init_base_ll(self, cond: torch.Tensor,
-                      hfrm: torch.Tensor) -> Optional[torch.Tensor]:
+                      hfrm: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """The LL-band source noised by ``_init_chain_state``; None = pure
         noise."""
         s = self.cfg.sampling
         pc = self.cfg.model.pred_channels
         if s.t_start > 0:
             if s.init_ll == "hfrm":
+                if hfrm is None:
+                    raise ValueError("init_ll: hfrm needs the wavelet path")
                 return hfrm[:, :pc]
             if s.init_ll == "cond":
                 return cond[:, :pc]
             return None
         return None if self.cfg.data.begin_from_noise else cond[:, :pc]
 
-    def _make_sampler(self, h: int, w: int) -> Callable:
-        """The chain for wavelet geometry (h, w): tiled, or with
+    def _make_sampler(self, h: int, w: int, use_other: bool) -> Callable:
+        """The chain for (h, w) in the UNet's domain: tiled, or with
         ``sampling.whole_image`` over the whole image, reflect-padded to
         the UNet's 2**(levels-1) divisibility and cropped back.  Both map
-        (x_init, x_cond, x_other, generator, step_noise) to
+        (x_init, x_cond, x_other, generator, step_noise, x_global) to
         (x_final, x0_preds); on the whole-image path ``step_noise`` has the
         padded geometry."""
         cfg, m = self.cfg, self.cfg.model
+        use_global = cfg.data.global_attn
         chain = dict(seq=self.seq, betas=self.betas, eta=cfg.sampling.eta,
                      pred_type=cfg.training.pred_type,
                      solver=cfg.sampling.solver)
@@ -134,10 +164,15 @@ class DiffusiveRestoration:
                 patch_size=cfg.data.image_size,
                 grid_r=cfg.sampling.grid_r,
                 pred_channels=m.pred_channels,
-                use_other=m.use_other_channels,
+                use_other=use_other,
+                use_global=use_global,
                 patch_micro_batch=cfg.sampling.patch_micro_batch,
                 x0_keep=cfg.sampling.x0_pred_index,
                 **chain)
+        if use_global:
+            raise ValueError(
+                "whole_image + global_attn is redundant (the global branch "
+                "injects whole-image context into tiles); disable one")
         div = 2 ** (len(m.ch_mult) - 1)
         pad = (0, (-w) % div, 0, (-h) % div)
 
@@ -145,7 +180,7 @@ class DiffusiveRestoration:
             return F.pad(x, pad, mode="reflect") if any(pad) else x
 
         def sample(x_init, x_cond, x_other=None, generator=None,
-                   step_noise=None):
+                   step_noise=None, x_global=None):
             other_p = None if x_other is None else reflect(x_other)
 
             def model_fn(xx, tt):
@@ -174,7 +209,7 @@ class DiffusiveRestoration:
         """Restore pipeline for pixel geometry (h, w), working in the
         wavelet domain (h/4, w/4)."""
         m = self.cfg.model
-        sampler = self._make_sampler(h // 4, w // 4)
+        sampler = self._make_sampler(h // 4, w // 4, m.use_other_channels)
 
         def restore(cond_pixel: torch.Tensor, noise: torch.Tensor,
                     generator: torch.Generator,
@@ -187,8 +222,11 @@ class DiffusiveRestoration:
                 self._init_base_ll(cond_w, hfrm_w), noise)
             x_other = (hfrm_w[:, m.other_channels_begin:]
                        if m.use_other_channels else None)
+            # the whole image the global UNet sees is the cond image itself,
+            # in the UNet's domain
+            x_global = cond_w if self.cfg.data.global_attn else None
             x_final, x0_preds = sampler(x_init, cond_w, x_other, generator,
-                                        step_noise)
+                                        step_noise, x_global)
             sel = self._select_output(x_final, x0_preds)
             full = torch.cat([sel[:, :m.pred_channels],
                               hfrm_w[:, m.pred_channels:]], dim=1)
@@ -196,9 +234,62 @@ class DiffusiveRestoration:
 
         return restore
 
-    def _get_restore_fn(self, h: int, w: int) -> Callable:
+    def _build_pixel_restore(self, h: int, w: int) -> Callable:
+        """Restore pipeline for the pixel path: the chain on the [-1,1]
+        pixels; the second output is the cond image passed through."""
+        sampler = self._make_sampler(h, w, use_other=False)
+
+        def restore(cond_pixel, noise, generator, step_noise):
+            cond_n = data_transform(cond_pixel)
+            x_init = self._init_chain_state(
+                self._init_base_ll(cond_n, None), noise)
+            x_global = cond_n if self.cfg.data.global_attn else None
+            x_final, x0_preds = sampler(x_init, cond_n, None, generator,
+                                        step_noise, x_global)
+            sel = self._select_output(x_final, x0_preds)
+            return inverse_data_transform(sel), cond_pixel
+
+        return restore
+
+    def _build_lap_restore(self, h: int, w: int) -> Callable:
+        """Restore pipeline for the Laplacian path: the [cond | gt] pair's
+        2-level pyramid, the chain on the coarse cond band at (h/4, w/4),
+        and the reconstruction from the degraded high bands and the
+        ground truth's low band (see the module doc); the second output is
+        the cond image."""
+        from wavedm_tpu_torch.models.laplacian import LaplacianPyramid
+        from wavedm_tpu_torch.training.lap import LAP_NUM_HIGH
+
+        lap = LaplacianPyramid(LAP_NUM_HIGH)
+        sampler = self._make_sampler(h // 4, w // 4, use_other=False)
+
+        def restore(pair_pixel, noise, generator, step_noise):
+            pyr = lap.decompose(data_transform(pair_pixel))
+            cond_coarse, gt_lowf = pyr[-1][:, :3], pyr[-1][:, 3:]
+            x_init = self._init_chain_state(
+                self._init_base_ll(cond_coarse, None), noise)
+            x_final, x0_preds = sampler(x_init, cond_coarse, None, generator,
+                                        step_noise)
+            sel = self._select_output(x_final, x0_preds)
+            rec = lap.reconstruct(pyr[:-1] + [torch.cat([sel, gt_lowf],
+                                                        dim=1)])
+            return inverse_data_transform(rec[:, :3]), pair_pixel[:, :3]
+
+        return restore
+
+    def _get_restore_fn(self, h: int, w: int, nch: int) -> Callable:
+        if self.cfg.data.lap:
+            if nch != 6:
+                raise ValueError(
+                    "lap restoration needs the 6-channel [cond|gt] pair")
+        elif nch != 3:
+            raise ValueError(f"expected (B, H, W, 3) images, got {nch} "
+                             "channels")
         if (h, w) not in self._restore_fns:
-            self._restore_fns[(h, w)] = self._build_wavelet_restore(h, w)
+            build = (self._build_lap_restore if self.cfg.data.lap else
+                     self._build_wavelet_restore if self.cfg.data.wavelet
+                     else self._build_pixel_restore)
+            self._restore_fns[(h, w)] = build(h, w)
         return self._restore_fns[(h, w)]
 
     @torch.no_grad()
@@ -207,22 +298,31 @@ class DiffusiveRestoration:
         generator: Optional[torch.Generator] = None,
         step_noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B|None, H, W, 3) [0,1] image(s) -> (restored, hfrm_out), both
-        (B, H, W, 3) float32 on the device, with no host transfer.
+        """(B|None, H, W, 3) [0,1] image(s) -> (restored, aux), both
+        (B, H, W, 3) float32 on the device, with no host transfer.  ``aux``
+        is the HFRM output on the wavelet path and the cond image on the
+        others.  The Laplacian path takes the (B|None, H, W, 6) [cond | gt]
+        pair instead.
 
-        ``noise``: x_T draw as (B, pred_channels, H/4, W/4); when None it is
-        drawn on the device from ``generator`` (default: seeded with
-        ``training.seed``), which also draws the per-step noise at
-        ``sampling.eta`` > 0 unless ``step_noise`` (T, B, pred, h, w) is
-        given."""
+        ``noise``: x_T draw as (B, pred_channels, h, w) at the chain's
+        geometry (H/4 x W/4 on the wavelet and Laplacian paths, H x W on
+        the pixel path); when None it is drawn on the device from
+        ``generator`` (default: seeded with ``training.seed``), which also
+        draws the per-step noise at ``sampling.eta`` > 0 unless
+        ``step_noise`` (T, B, pred, h, w) is given."""
         x = torch.as_tensor(cond_pixel, dtype=torch.float32,
                             device=self.device)
         if x.dim() == 3:
             x = x[None]
-        b, h, w, _ = x.shape
-        if h % 4 or w % 4:
-            raise ValueError(f"image dims {(h, w)} must be divisible by 4")
-        shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
+        b, h, w, nch = x.shape
+        fn = self._get_restore_fn(h, w, nch)
+        if self.cfg.data.wavelet or self.cfg.data.lap:
+            if h % 4 or w % 4:
+                raise ValueError(f"image dims {(h, w)} must be divisible "
+                                 "by 4")
+            shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
+        else:
+            shape = (b, self.cfg.model.pred_channels, h, w)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 self.cfg.training.seed)
@@ -233,16 +333,15 @@ class DiffusiveRestoration:
             raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
         noise = noise.to(device=self.device, dtype=torch.float32)
         pixels = x.permute(0, 3, 1, 2).contiguous()
-        out, restored = self._get_restore_fn(h, w)(pixels, noise, generator,
-                                                   step_noise)
-        return out.permute(0, 2, 3, 1), restored.permute(0, 2, 3, 1)
+        out, aux = fn(pixels, noise, generator, step_noise)
+        return out.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
 
     def restore_image(self, cond_pixel, noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       step_noise: Optional[torch.Tensor] = None
                       ) -> Tuple[np.ndarray, torch.Tensor]:
         """As :meth:`restore_image_device`, with the restored image fetched
-        to the host as a (B, H, W, 3) numpy array; the HFRM output stays on
+        to the host as a (B, H, W, 3) numpy array; the aux output stays on
         the device."""
         out, restored = self.restore_image_device(cond_pixel, noise,
                                                   generator, step_noise)
@@ -275,7 +374,10 @@ class DiffusiveRestoration:
             if not batch:
                 return
             pairs = np.stack([p for p, _ in batch])
-            out, _ = self.restore_image(pairs[..., :3], generator=generator)
+            # the Laplacian path restores from the whole pair (its low band
+            # comes from the ground truth, see the module doc)
+            inp = pairs if self.cfg.data.lap else pairs[..., :3]
+            out, _ = self.restore_image(inp, generator=generator)
             for k, (pair, img_id) in enumerate(batch):
                 cond, gt = pair[..., :3], pair[..., 3:]
                 out0 = out[k]

@@ -25,6 +25,9 @@ Differences from JAX, by design:
 - Requests must be PNG (decoded by ``utils/images.py``): the card's
   machine has no JPEG decoder without PIL.  Anything else is answered 500
   with a ``ValueError`` that says so.
+- A restorer on the Laplacian path is refused with a ``ValueError``: it
+  restores from a [cond | gt] pair, and a request carries no ground truth
+  (JAX's server would fail on each request instead).
 - x_T comes from one ``torch.Generator`` on the restorer's device, seeded
   with ``rng_seed`` and advanced by each batch's draws, where JAX splits a
   ``PRNGKey`` per batch; the two streams differ, so equal seeds do not give
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from wavedm_tpu_torch.data.raindrop import restore_input
+from wavedm_tpu_torch.inference.restoration import refuse_lap
 from wavedm_tpu_torch.utils.images import decode_png, encode_png
 
 __all__ = ["Microbatcher", "RestorationServer"]
@@ -120,6 +124,8 @@ class RestorationServer:
 
     def __init__(self, restorer, *, batch: int = 8, window_ms: float = 30.0,
                  no_resize: bool = False, rng_seed: int = 61):
+        if getattr(restorer, "cfg", None) is not None:
+            refuse_lap(restorer.cfg, "RestorationServer")
         self.restorer = restorer
         self.batcher = Microbatcher(batch=batch, window_ms=window_ms)
         self.no_resize = no_resize

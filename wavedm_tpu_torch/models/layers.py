@@ -23,6 +23,7 @@ from wavedm_tpu_torch.ops.groupnorm_cuda import group_norm
 __all__ = [
     "get_timestep_embedding",
     "Conv2d",
+    "ConvTranspose2d",
     "Linear",
     "Normalize",
     "Upsample",
@@ -63,6 +64,22 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(dt), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with the cast-at-use ``compute_dtype`` of
+    :class:`Conv2d`."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x, self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` with the cast-at-use ``compute_dtype`` of
     :class:`Conv2d`."""
@@ -88,7 +105,7 @@ def cast_compute(module: nn.Module, dtype: torch.dtype,
     adds the bias in float32, as the JAX kernel does.  Norm and
     residual-scale parameters stay float32."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             m.compute_dtype = dtype
             if store and not getattr(m, "keep_f32", False):
                 m.to(dtype)

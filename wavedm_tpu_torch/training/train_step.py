@@ -1,19 +1,35 @@
 """The stage-2 diffusion train step.
 
-One call: batch prep (pixels -> Haar wavelet domain) -> antithetic t and
-noise draws -> eps/v loss -> backward -> optimizer -> EMA, updating the
-``TrainState`` in place.  The port of ``wavedm_tpu/training/train_step.py``
-for the wavelet domain; batches arrive as (B, P, P, 6) [cond | gt] pixels in
-[0, 1] (the JAX layout) and run as NCHW inside.  The pixel, whole-image
-(``global_attn``) and Laplacian domains are not ported (ROADMAP item 15).
+One call: batch prep (the domain transform) -> antithetic t and noise
+draws -> eps/v loss -> backward -> optimizer -> EMA, updating the
+``TrainState`` in place.  The port of ``wavedm_tpu/training/train_step.py``.
+Batches arrive as (B, P, P, 6) [cond | gt] pixels in [0, 1] (the JAX
+layout) and run as NCHW inside.  The domains:
+
+- wavelet: the 2-level Haar packet of cond and target, with the HF
+  conditioning from the ground truth or the frozen HFRM;
+- pixel (``data.wavelet: false``): the [-1,1] pixels as they are;
+- global (``data.global_attn``, on either): the batch is (crops, totals),
+  one 720x480 whole image per B images of crops, which the UNet's global
+  branch takes in [-1,1] (wavelet-decomposed on the wavelet path);
+- Laplacian (``data.lap``): the diffusion trains on the coarsest level of
+  the 2-level Gauss pyramid of the [-1,1] pair, while the high-frequency
+  translator takes its own Adam step on the sum of the per-level MSEs
+  (``training/lap.py``).
+
+As in JAX, the reported loss per pixel divides by ``pred_channels *
+image_size**2`` on every domain, on the Laplacian one too, where the loss
+lives on a level 4x smaller on each side.  ``use_fft``, ``use_window`` and
+``wavelet_in_unet`` are not ported yet (ROADMAP item 15).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.diffusion.ema import ema_update
@@ -25,17 +41,26 @@ from wavedm_tpu_torch.inference.restoration import (data_transform,
 from wavedm_tpu_torch.ops.wavelet import wavelet_dec
 from wavedm_tpu_torch.training.state import TrainState
 
-__all__ = ["data_transform", "inverse_data_transform", "prepare_wavelet_batch",
-           "StepMetrics", "check_domain", "make_train_step"]
+__all__ = ["data_transform", "inverse_data_transform", "prepare_pixel_batch",
+           "prepare_wavelet_batch", "prepare_global_batch", "StepMetrics",
+           "check_domain", "make_train_step"]
 
 
 def check_domain(cfg: Config) -> None:
-    """Raise for the training domains the port does not have yet."""
+    """Raise for the switches whose training the port does not have yet."""
     d = cfg.data
-    if not d.wavelet or d.wavelet_in_unet or d.lap or d.global_attn:
-        raise NotImplementedError(
-            "only the wavelet-domain diffusion training is ported; the pixel, "
-            "global and lap domains are ROADMAP item 15")
+    for name, value in (("use_fft", d.use_fft), ("use_window", d.use_window),
+                        ("wavelet_in_unet", d.wavelet_in_unet)):
+        if value:
+            raise NotImplementedError(
+                f"{name} training is not ported yet (ROADMAP item 15)")
+
+
+def prepare_pixel_batch(x: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """(B, P, P, 6) [cond | gt] pixels in [0,1] -> (B, 6, P, P) NCHW
+    training tensor in [-1,1], contiguous (the fused kernel takes no
+    channels-last strides)."""
+    return data_transform(x.permute(0, 3, 1, 2).contiguous())
 
 
 def prepare_wavelet_batch(x: torch.Tensor, cfg: Config,
@@ -64,25 +89,40 @@ def prepare_wavelet_batch(x: torch.Tensor, cfg: Config,
     return torch.cat([cond_w, gt_w[:, :m.pred_channels], hf], dim=1)
 
 
+def prepare_global_batch(total: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """(Bg, H, W, 3) whole images in [0,1] -> the global UNet's (Bg, C, ., .)
+    NCHW input: [-1,1] pixels, wavelet-decomposed on the wavelet path."""
+    t = data_transform(total.permute(0, 3, 1, 2))
+    if cfg.data.wavelet:
+        t = wavelet_dec(t)
+    return t
+
+
 class StepMetrics(NamedTuple):
     loss: torch.Tensor            # eps loss (sum over pixels, batch mean)
     mse_loss: torch.Tensor        # x0 MSE
     loss_per_pixel: torch.Tensor
     grad_norm: torch.Tensor
+    loss_trans: torch.Tensor = torch.zeros(())   # lap translator MSE
 
 
 def make_train_step(cfg: Config, model: nn.Module,
-                    hfrm: Optional[nn.Module] = None
-                    ) -> Callable[..., StepMetrics]:
-    """``step(state, batch, t=None, e=None) -> StepMetrics``.
+                    hfrm: Optional[nn.Module] = None) -> Callable:
+    """The step for the config's domain.
+
+    ``step(state, batch, t=None, e=None) -> StepMetrics``; on the global
+    domain ``batch`` is ``(crops, totals)``.  The Laplacian domain's is
+    ``step(state, lap_state, batch, lap_lr, t=None, e=None)``, which also
+    advances the translator's ``LapState`` with learning rate ``lap_lr``.
 
     batch: (B, P, P, 6) float32 pixels in [0,1], array or tensor.  t: (B,)
-    integer timesteps and e: (B, pred_channels, P/4, P/4) noise; each is
-    drawn from ``state.generator`` when not given.  ``training.grad_accum``
-    > 1 splits the batch into that many micro-batches and averages their
-    gradients into one update."""
+    integer timesteps and e: (B, pred_channels, h, w) noise at the
+    diffusion domain's geometry; each is drawn from ``state.generator`` when
+    not given.  ``training.grad_accum`` > 1 splits the batch into that many
+    micro-batches and averages their gradients into one update (not on the
+    global and Laplacian domains, as in JAX)."""
     check_domain(cfg)
-    m = cfg.model
+    m, d = cfg.model, cfg.data
     device = next(model.parameters()).device
     betas = torch.as_tensor(get_beta_schedule(
         cfg.diffusion.beta_schedule,
@@ -91,23 +131,30 @@ def make_train_step(cfg: Config, model: nn.Module,
         num_diffusion_timesteps=cfg.diffusion.num_diffusion_timesteps,
     ), dtype=torch.float32, device=device)
     num_timesteps = cfg.diffusion.num_diffusion_timesteps
-    num_of_pixel = m.pred_channels * cfg.data.image_size ** 2
+    num_of_pixel = m.pred_channels * d.image_size ** 2
+    inp_channels = m.in_channels if d.wavelet else d.channels
     accum = cfg.training.grad_accum
+    if accum > 1 and (d.global_attn or d.lap):
+        raise ValueError("training.grad_accum > 1 is not supported with "
+                         "global_attn or the lap path")
     mu = m.ema_rate
 
-    def loss_fn(x, t, e):
+    def loss_fn(x, t, e, x_global):
+        fn = model if x_global is None else (
+            lambda xx, tt: model(xx, tt, x_global))
         return noise_estimation_loss(
-            model, x, t, e, betas, inp_channels=m.in_channels,
+            fn, x, t, e, betas, inp_channels=inp_channels,
             pred_channels=m.pred_channels,
             use_other_channels=m.use_other_channels,
             pred_type=cfg.training.pred_type,
             snr_gamma=cfg.training.snr_gamma)
 
-    def step(state: TrainState, batch, t: Optional[torch.Tensor] = None,
-             e: Optional[torch.Tensor] = None) -> StepMetrics:
-        x = prepare_wavelet_batch(
-            torch.as_tensor(batch, dtype=torch.float32, device=device),
-            cfg, hfrm)
+    def diffusion_update(state: TrainState, x: torch.Tensor,
+                         x_global: Optional[torch.Tensor],
+                         t: Optional[torch.Tensor], e: Optional[torch.Tensor],
+                         loss_trans: torch.Tensor) -> StepMetrics:
+        """t/e draws, eps-loss gradients, the optimizer and the EMA on the
+        diffusion-domain tensor ``x``."""
         n = x.shape[0]
         if n % accum:
             raise ValueError(
@@ -125,7 +172,7 @@ def make_train_step(cfg: Config, model: nn.Module,
         mb = n // accum
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
-            out = loss_fn(x[sl], t[sl], e[sl])
+            out = loss_fn(x[sl], t[sl], e[sl], x_global)
             main = out.mse_loss if cfg.training.use_mse else out.simple_loss
             (main / accum).backward()
             # micro losses are means over equal micro-batches
@@ -141,6 +188,49 @@ def make_train_step(cfg: Config, model: nn.Module,
         state.step += 1
         return StepMetrics(loss=simple, mse_loss=mse,
                            loss_per_pixel=simple / num_of_pixel,
-                           grad_norm=grad_norm)
+                           grad_norm=grad_norm, loss_trans=loss_trans)
+
+    if d.lap:
+        from wavedm_tpu_torch.models.laplacian import LaplacianPyramid
+        from wavedm_tpu_torch.training.lap import LAP_NUM_HIGH, LapState
+
+        lap_pyr = LaplacianPyramid(LAP_NUM_HIGH)
+
+        def lap_loss(trans: Sequence[torch.Tensor],
+                     pyr: Sequence[torch.Tensor]) -> torch.Tensor:
+            return sum(F.mse_loss(trans[lv], pyr[lv][:, 3:])
+                       for lv in range(LAP_NUM_HIGH))
+
+        def lap_step(state: TrainState, lap_state: LapState, batch,
+                     lap_lr: float, t: Optional[torch.Tensor] = None,
+                     e: Optional[torch.Tensor] = None) -> StepMetrics:
+            x = torch.as_tensor(batch, dtype=torch.float32, device=device)
+            pyr = lap_pyr.decompose(prepare_pixel_batch(x, cfg))
+            lap_state.model.train()
+            opt = lap_state.optimizer
+            for group in opt.param_groups:
+                group["lr"] = lap_lr
+            opt.zero_grad(set_to_none=True)
+            loss_trans = lap_loss(
+                lap_state.model([lvl[:, :3] for lvl in pyr]), pyr)
+            loss_trans.backward()
+            opt.step()
+            return diffusion_update(state, pyr[-1].contiguous(), None, t,
+                                    e, loss_trans.detach())
+
+        return lap_step
+
+    def step(state: TrainState, batch, t: Optional[torch.Tensor] = None,
+             e: Optional[torch.Tensor] = None) -> StepMetrics:
+        x_global = None
+        if d.global_attn:
+            batch, total = batch
+            x_global = prepare_global_batch(
+                torch.as_tensor(total, dtype=torch.float32, device=device),
+                cfg)
+        x = torch.as_tensor(batch, dtype=torch.float32, device=device)
+        x = (prepare_wavelet_batch(x, cfg, hfrm) if d.wavelet
+             else prepare_pixel_batch(x, cfg))
+        return diffusion_update(state, x, x_global, t, e, torch.zeros(()))
 
     return step

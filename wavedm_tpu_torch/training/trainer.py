@@ -1,9 +1,15 @@
 """Diffusion trainer: the epoch/step loop around the train step.
 
-The port of ``wavedm_tpu/training/trainer.py`` for the wavelet domain: the
-loop feeds batches, logs every 10 steps, calls the in-train validation hook
-every ``training.validation_freq`` steps, and checkpoints every
-``training.snapshot_freq`` steps (and after step 1).  Single process.
+The port of ``wavedm_tpu/training/trainer.py``: the loop feeds batches,
+logs every 10 steps, calls the in-train validation hook every
+``training.validation_freq`` steps, and checkpoints every
+``training.snapshot_freq`` steps (and after step 1).  It trains every
+domain of ``training/train_step.py``: with ``data.global_attn`` the UNet is
+``DiffusionUNetGlobal`` and batches are (crops, totals); with ``data.lap``
+the high-frequency translator co-trains (``training/lap.py``), its LR set
+once per epoch, and its parameters and Adam moments are checkpointed beside
+the UNet's, as JAX checkpoints them (the original reference does not).
+Single process.
 """
 
 from __future__ import annotations
@@ -14,10 +20,12 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, List, Optional
 
 import numpy as np
+import torch
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.inference.loader import (Weights, build_hfrm,
                                                build_unet, resolve_device)
+from wavedm_tpu_torch.training.lap import create_lap_state, lap_lr_for_epoch
 from wavedm_tpu_torch.training.state import TrainState, create_train_state
 from wavedm_tpu_torch.training.train_step import check_domain, make_train_step
 from wavedm_tpu_torch.utils.checkpoint import (load_checkpoint,
@@ -60,8 +68,13 @@ class DiffusionTrainer:
         self.state = create_train_state(self.model, cfg.optim,
                                         cfg.training.seed)
         self.epoch = 0
+        self.lap_state = None
+        if cfg.data.lap:
+            self.lap_state = create_lap_state(torch.Generator(
+                device=self.device).manual_seed(cfg.training.seed + 2))
         self.hfrm = None
-        if cfg.model.use_other_channels and not cfg.model.use_gt_in_train:
+        if (cfg.data.wavelet and cfg.model.use_other_channels
+                and not cfg.model.use_gt_in_train):
             if hfrm_state_dict is None:
                 raise ValueError(
                     "use_gt_in_train=False requires frozen HFRM weights "
@@ -73,10 +86,12 @@ class DiffusionTrainer:
 
     def save(self, path: str) -> str:
         """Write the train state to ``path``; returns the file written."""
-        return save_checkpoint(path, self.state, self.cfg, epoch=self.epoch)
+        return save_checkpoint(path, self.state, self.cfg, epoch=self.epoch,
+                               lap_state=self.lap_state)
 
     def resume(self, path: str) -> None:
-        meta = load_checkpoint(path, self.state, self.cfg)
+        meta = load_checkpoint(path, self.state, self.cfg,
+                               lap_state=self.lap_state)
         self.epoch = int(meta["epoch"])
         self.log(f"=> loaded checkpoint '{path}' "
                  f"(epoch {self.epoch}, step {self.state.step})")
@@ -98,7 +113,8 @@ class DiffusionTrainer:
         not.)
 
         batch_iter_fn(epoch) -> iterable of (B, P, P, 6) float32 batches in
-        [0, 1].  metrics_path: optional JSONL file that receives each
+        [0, 1] ((crops, totals) pairs with ``data.global_attn``).
+        metrics_path: optional JSONL file that receives each
         logged step's metrics.  validate_fn(state, step): the in-train
         validation hook, called after each step that is a multiple of
         ``training.validation_freq``, before that step's snapshot."""
@@ -116,7 +132,12 @@ class DiffusionTrainer:
             for batch in batch_iter_fn(epoch):
                 data_time = time.time() - data_start
                 timer.start()
-                m = self.train_step(self.state, batch)
+                if self.lap_state is not None:
+                    m = self.train_step(
+                        self.state, self.lap_state, batch,
+                        lap_lr_for_epoch(epoch, cfg.training.n_epochs))
+                else:
+                    m = self.train_step(self.state, batch)
                 step = self.state.step
                 if step % 10 == 0:
                     timer.stop(sync_on=m.loss)
@@ -127,13 +148,15 @@ class DiffusionTrainer:
                         (cfg.model.pred_channels * cfg.data.image_size ** 2),
                         data_time=data_time, step_time=timer.times[-1])
                     history.append(entry)
+                    lap_note = (f", loss_trans: {float(m.loss_trans):.5f}"
+                                if self.lap_state is not None else "")
                     self.log(
                         f"step: {entry.step}, loss: {entry.loss:.2f}, "
                         f"loss/px: {entry.loss_per_pixel:.5f}, "
                         f"mse/px: {entry.mse_per_pixel:.5f}, "
                         f"step time: {entry.step_time:.3f}s "
                         f"(avg {timer.mean:.3f}s), "
-                        f"data time: {entry.data_time:.3f}s")
+                        f"data time: {entry.data_time:.3f}s" + lap_note)
                     if mlog is not None:
                         mlog.log(step, loss=entry.loss,
                                  loss_per_pixel=entry.loss_per_pixel,

@@ -8,7 +8,9 @@ or its EMA shadow from it, plus the generator's state and the
 refuses a file whose ``pred_type`` differs from the config's.  A trainer
 adds scalars of its own through ``extra`` (the stage-1 trainer: its
 ``best_psnr``; it keeps no EMA, so its ``ema_helper`` is empty), and
-``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  The JAX
+``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  A
+Laplacian-path run also stores its translator under ``lap``: its
+``state_dict`` and its Adam's ``optimizer`` state.  The JAX
 package's Orbax checkpoints become such files through
 ``utils/orbax_convert.py``, which writes a seed (``training.seed``) in
 place of the generator's state; :func:`load_checkpoint` seeds the
@@ -33,14 +35,20 @@ __all__ = ["SUFFIX", "save_checkpoint", "write_checkpoint", "load_checkpoint",
 SUFFIX = ".pth.tar"
 
 
-_TENSORS = ("state_dict", "optimizer", "ema_helper", "generator")
+_TENSORS = ("state_dict", "optimizer", "ema_helper", "generator", "lap")
 
 
 def save_checkpoint(path: str, state: TrainState, cfg: Config,
-                    epoch: int = 0, extra: Optional[Dict] = None) -> str:
-    """Write ``state`` and the ``extra`` scalars to ``path`` (``SUFFIX``
-    appended if missing) through a temporary file, so a cut write leaves
-    no partial checkpoint."""
+                    epoch: int = 0, extra: Optional[Dict] = None,
+                    lap_state=None) -> str:
+    """Write ``state``, the ``extra`` scalars and the Laplacian path's
+    translator ``lap_state`` (a ``training.lap.LapState``) to ``path``
+    (``SUFFIX`` appended if missing) through a temporary file, so a cut
+    write leaves no partial checkpoint."""
+    if lap_state is not None:
+        extra = dict(extra or {}, lap={
+            "state_dict": lap_state.model.state_dict(),
+            "optimizer": lap_state.optimizer.state_dict()})
     return write_checkpoint(
         path, cfg, state_dict=state.model.state_dict(),
         optimizer=state.optimizer.state_dict(), ema_helper=state.ema,
@@ -74,9 +82,12 @@ def write_checkpoint(path: str, cfg: Config, *, state_dict: Dict,
     return path
 
 
-def load_checkpoint(path: str, state: TrainState, cfg: Config) -> Dict:
-    """Restore ``state`` in place from ``path``; returns the file's
-    metadata (``step``, ``epoch``, ``pred_type``, ``config`` and the
+def load_checkpoint(path: str, state: TrainState, cfg: Config,
+                    lap_state=None) -> Dict:
+    """Restore ``state`` in place from ``path``, and ``lap_state`` where the
+    file holds a translator (a file without one leaves ``lap_state`` as it
+    is, as the JAX loader starts a missing translator fresh); returns the
+    file's metadata (``step``, ``epoch``, ``pred_type``, ``config`` and the
     ``extra`` scalars it was saved with)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     saved = obj.get("pred_type")
@@ -89,6 +100,9 @@ def load_checkpoint(path: str, state: TrainState, cfg: Config) -> Dict:
     with torch.no_grad():
         for name, value in obj["ema_helper"].items():
             state.ema[name].copy_(value)
+    if lap_state is not None and "lap" in obj:
+        lap_state.model.load_state_dict(obj["lap"]["state_dict"])
+        lap_state.optimizer.load_state_dict(obj["lap"]["optimizer"])
     state.step = int(obj["step"])
     if isinstance(obj["generator"], int):      # a converted Orbax checkpoint
         state.generator.manual_seed(obj["generator"])

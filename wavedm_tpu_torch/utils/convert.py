@@ -17,7 +17,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_flax", "hfrm_state_dict_from_flax",
+__all__ = ["unet_state_dict_from_flax", "unet_global_state_dict_from_flax",
+           "lap_state_dict_from_flax", "hfrm_state_dict_from_flax",
            "load_torch_checkpoint"]
 
 
@@ -90,6 +91,65 @@ def unet_state_dict_from_flax(params: Mapping, num_levels: int,
                   params[f"up_{i}_upsample"]["conv"])
     _norm(sd, "norm_out", params["norm_out"])
     _conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def _conv_transpose(sd: Dict, key: str, p: Mapping) -> None:
+    # Flax's ConvTranspose convolves the zero-stuffed input with the kernel
+    # as it is; torch's transposed conv uses it flipped, laid out (I, O)
+    sd[f"{key}.weight"] = _t(np.transpose(
+        np.asarray(p["kernel"])[::-1, ::-1], (2, 3, 0, 1)))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _attn_global(sd: Dict, key: str, p: Mapping) -> None:
+    _norm(sd, f"{key}.norm_patch", p["norm_patch"])
+    _norm(sd, f"{key}.norm_global", p["norm_global"])
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(sd, f"{key}.{name}", p[name])
+
+
+def unet_global_state_dict_from_flax(params: Mapping, num_levels: int,
+                                     num_res_blocks: int
+                                     ) -> Dict[str, torch.Tensor]:
+    """JAX ``DiffusionUNetGlobal`` params -> the port's
+    ``DiffusionUNetGlobal`` state_dict.
+
+    The names are the port's (``models/unet_global.py``), made from JAX's:
+    the original reference's ``.pth`` names for ``DiffusionUNet_Global`` are
+    not in this repository to check against, and the JAX package's
+    ``utils/torch_compat.py`` maps none either, so a reference checkpoint
+    of that model does not load through these names."""
+    sd = unet_state_dict_from_flax(params, num_levels, num_res_blocks)
+    _conv(sd, "global_conv_in", params["global_conv_in"])
+    for side in ("down", "up"):
+        for i in range(num_levels):
+            p = params.get(f"{side}_global_{i}_conv")
+            if p is not None:
+                (_conv if side == "down" else _conv_transpose)(
+                    sd, f"{side}.{i}.global_conv", p)
+            if f"{side}_global_{i}_proj" in params:
+                _conv(sd, f"{side}.{i}.global_proj",
+                      params[f"{side}_global_{i}_proj"])
+            _attn_global(sd, f"{side}.{i}.global_attn",
+                         params[f"{side}_global_{i}_attn"])
+    return sd
+
+
+def lap_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``LapHighTrans`` params -> the port's ``LapHighTrans``
+    state_dict, whose module names are JAX's (``trans_high.res_0.conv1``
+    for ``trans_high/res_0/conv1``)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, p: Mapping) -> None:
+        if "kernel" in p:
+            _conv(sd, prefix, p)
+            return
+        for name, sub in p.items():
+            walk(f"{prefix}.{name}" if prefix else name, sub)
+
+    walk("", params)
     return sd
 
 

@@ -10,10 +10,16 @@ which ``build_restorer``, ``build_hfrm``, ``DiffusionTrainer.resume`` and
 ``HFRMTrainer.resume`` load:
 
 - weights: a diffusion UNet's params and EMA through
-  ``unet_state_dict_from_flax``, a stage-1 HFRM's params through
-  ``hfrm_state_dict_from_flax`` (it keeps no EMA).  The parameter tree
-  says which it is; any other tree raises, as does one whose shapes
-  differ from the model the config builds.
+  ``unet_state_dict_from_flax`` (``unet_global_state_dict_from_flax`` for
+  the global-attention UNet of ``data.global_attn``), a stage-1 HFRM's
+  params through ``hfrm_state_dict_from_flax`` (it keeps no EMA).  The
+  parameter tree says which it is; any other tree raises, as does one
+  whose shapes differ from the model the config builds, or a global tree
+  under a config without ``data.global_attn`` (and the reverse).
+- the Laplacian path's translator (``data.lap``; JAX checkpoints it as
+  the extra tree ``lap``): its params through
+  ``lap_state_dict_from_flax`` and its Adam moments the same way, under
+  the file's ``lap`` entry that ``DiffusionTrainer.resume`` reads.
 - optimizer: each moment tree goes through the same layout transform as
   the weights into the torch optimizer's ``state_dict``, indexed in
   ``named_parameters()`` order, with the config's hyperparameters:
@@ -45,10 +51,14 @@ import torch
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.hfrm import HFRM
 from wavedm_tpu_torch.models.unet import DiffusionUNet
+from wavedm_tpu_torch.models.unet_global import DiffusionUNetGlobal
 from wavedm_tpu_torch.training.hfrm_trainer import make_hfrm_optimizer
+from wavedm_tpu_torch.training.lap import make_lap_model, make_lap_optimizer
 from wavedm_tpu_torch.training.state import make_optimizer
 from wavedm_tpu_torch.utils.checkpoint import write_checkpoint
 from wavedm_tpu_torch.utils.convert import (hfrm_state_dict_from_flax,
+                                            lap_state_dict_from_flax,
+                                            unet_global_state_dict_from_flax,
                                             unet_state_dict_from_flax)
 
 __all__ = ["read_orbax_checkpoint", "checkpoint_kind",
@@ -100,6 +110,11 @@ def _model(kind: str, cfg: Config):
     with torch.device("meta"):
         if kind == "unet":
             m = cfg.model
+            if cfg.data.global_attn:
+                return (DiffusionUNetGlobal.from_config(
+                    cfg, keep_f32_params=True),
+                    lambda p: unet_global_state_dict_from_flax(
+                        p, len(m.ch_mult), m.num_res_blocks))
             return (DiffusionUNet.from_config(cfg, keep_f32_params=True),
                     lambda p: unet_state_dict_from_flax(
                         p, len(m.ch_mult), m.num_res_blocks))
@@ -139,6 +154,39 @@ def _moments(opt_state) -> Dict:
     return found[0]
 
 
+def _torch_optimizer_state(moments: Dict, model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer) -> Dict:
+    """A torch optimizer ``state_dict`` holding ``moments`` ({torch state
+    key: state_dict of it}), indexed in ``named_parameters()`` order."""
+    named = [n for n, p in model.named_parameters() if p.requires_grad]
+    state = {i: {key: torch.tensor(val) if key == "step" else val[name]
+                 for key, val in moments.items()}
+             for i, name in enumerate(named)}
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def _lap_entry(lap_tree: Mapping) -> Dict:
+    """The JAX ``LapState`` tree -> the file's ``lap`` entry."""
+    with torch.device("meta"):
+        model = make_lap_model()
+    sd = lap_state_dict_from_flax(lap_tree["params"])
+    want = model.state_dict()
+    if set(sd) != set(want) or any(sd[k].shape != want[k].shape
+                                   for k in sd):
+        raise ValueError("the lap translator's parameters do not fit "
+                         "LapHighTrans")
+    s = _moments(lap_tree["opt_state"])
+    if "mu" not in s or "nu_max" in s:
+        raise ValueError("the lap translator's optimizer state is not Adam")
+    moments = {"exp_avg": lap_state_dict_from_flax(s["mu"]),
+               "exp_avg_sq": lap_state_dict_from_flax(s["nu"]),
+               "step": float(s["count"])}
+    optimizer = make_lap_optimizer(list(model.parameters()))
+    return {"state_dict": sd,
+            "optimizer": _torch_optimizer_state(moments, model, optimizer)}
+
+
 def _optimizer_state(opt_state, kind: str, cfg: Config, step: int,
                      to_sd: Callable) -> Tuple[str, Dict[str, Dict]]:
     """(torch optimizer name, {torch state key: state_dict of it})."""
@@ -176,6 +224,15 @@ def convert_orbax_checkpoint(src: str, dst: str, cfg: Config) -> Dict:
     ``path``, ``kind``, ``optimizer``, ``step``, ``epoch``."""
     tree, meta = read_orbax_checkpoint(src)
     kind = checkpoint_kind(tree["params"])
+    if kind == "unet" and ("global_conv_in" in tree["params"]
+                           ) != cfg.data.global_attn:
+        raise ValueError(
+            f"{src}: a {'global' if cfg.data.global_attn else 'plain'} "
+            "UNet config for a checkpoint of the other UNet "
+            "(data.global_attn)")
+    if "lap" in tree and not cfg.data.lap:
+        raise ValueError(f"{src} holds a Laplacian-path translator; the "
+                         "config has no data.lap")
     model, to_sd = _model(kind, cfg)
     sd = to_sd(tree["params"])
     want = model.state_dict()
@@ -189,16 +246,13 @@ def convert_orbax_checkpoint(src: str, dst: str, cfg: Config) -> Dict:
     opt_name, moments = _optimizer_state(tree["opt_state"], kind, cfg, step,
                                          to_sd)
 
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    params = [p for _, p in named]
+    params = [p for p in model.parameters() if p.requires_grad]
     optimizer = (make_optimizer(cfg.optim, params) if kind == "unet"
                  else make_hfrm_optimizer(cfg, params))
-    state = {i: {key: torch.tensor(val) if key == "step" else val[name]
-                 for key, val in moments.items()}
-             for i, (name, _) in enumerate(named)}
-    opt_sd = {"state": state,
-              "param_groups": optimizer.state_dict()["param_groups"]}
+    opt_sd = _torch_optimizer_state(moments, model, optimizer)
     extra = {k: v for k, v in meta.items() if k != "epoch"}
+    if "lap" in tree:
+        extra["lap"] = _lap_entry(tree["lap"])
     path = write_checkpoint(dst, cfg, state_dict=sd, optimizer=opt_sd,
                             ema_helper=ema, step=step,
                             generator=int(cfg.training.seed),
