@@ -89,6 +89,20 @@ Phases, each printing one JSON line with its elapsed seconds:
                     pair through both routes; one training step of each
                     domain; every kernel against its plain version at these
                     paths' shapes (new rows of the kernel table)
+  switches          the UNet's switches no shipped config turns on, at full
+                    width (chains cut to 2 steps), each also on the card
+                    against the CPU at a small size: ``wavelet_in_unet`` on
+                    the reference UNet (two 720x480 images, 90 patches of
+                    256x256, bfloat16 via ``fused_groupnorm`` and float32
+                    via ``fused_resblock``; two DWTs and one IWT a UNet
+                    call), one training step whose backward runs the DWT
+                    kernel as the IWT's gradient, the wavelet kernels'
+                    gradients against plain autograd (new rows of the
+                    kernel table); ``use_window`` and ``use_fft`` on the
+                    pixel profile (a 256x256 image, one training step
+                    each); stage 1's aux models (WDNet, SAM, HFRM with TLC)
+                    and one full-width HFRM step with the GAN and
+                    perceptual terms
 
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -120,6 +134,7 @@ L2_BYTES = 50 * 2 ** 20    # its L2 cache
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
+DEV = "cuda"               # the card (the switches phase names it so)
 TRAIN_STEPS = 5
 HFRM_PARAMS = 15_941_667   # HFRM at full width: dim 32, 2,2,2,4 / 6 / 2,2,2,2
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -252,26 +267,42 @@ def ptxas_report(text):
     return out
 
 
+def unet_body(cfg, n_patches, hw=None, **overrides):
+    """(the UNet of ``cfg`` without its use_window / wavelet_in_unet hooks,
+    on the meta device; an input of ``n_patches`` at (H, W) = ``hw``
+    (default: the size the UNet works at on a patch) for it): the body
+    the norm sites sit in."""
+    import torch
+
+    from wavedm_tpu_torch.models.unet import DiffusionUNet, conv_in_channels
+
+    d = cfg.data
+    side = (d.image_size // (4 if d.wavelet_in_unet else 1)
+            // (d.window_size if d.use_window else 1))
+    hw = hw or (side, side)
+    with torch.device("meta"):
+        unet = DiffusionUNet.from_config(cfg, use_window=False,
+                                         wavelet_in_unet=False, **overrides)
+        x = torch.empty(n_patches, conv_in_channels(cfg), *hw)
+    return unet, x
+
+
 def gn_sites(cfg, n_patches, hw=None):
     """(C, H, W, swish) -> count over one UNet forward on (H, W) = ``hw``
-    inputs (default: the patch), from a forward on the meta device with
-    hooks on every Normalize."""
+    inputs (default: the size the UNet works at), from a forward on the
+    meta device with hooks on every Normalize."""
     import torch
     from collections import Counter
 
     from wavedm_tpu_torch.models.layers import Normalize
-    from wavedm_tpu_torch.models.unet import DiffusionUNet
 
-    hw = hw or (cfg.data.image_size, cfg.data.image_size)
-    with torch.device("meta"):
-        unet = DiffusionUNet.from_config(cfg, fused_gn=False)
-        sites = Counter()
-        for m in unet.modules():
-            if isinstance(m, Normalize):
-                m.register_forward_hook(lambda mod, inp, out: sites.update(
-                    [tuple(inp[0].shape[1:]) + (mod.swish,)]))
-        unet(torch.empty(n_patches, cfg.model.unet_in_channels, *hw),
-             torch.empty(n_patches))
+    unet, x = unet_body(cfg, n_patches, hw, fused_gn=False)
+    sites = Counter()
+    for m in unet.modules():
+        if isinstance(m, Normalize):
+            m.register_forward_hook(lambda mod, inp, out: sites.update(
+                [tuple(inp[0].shape[1:]) + (mod.swish,)]))
+    unet(x, torch.empty(n_patches, device="meta"))
     return sites
 
 
@@ -407,26 +438,23 @@ def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
 def fused_sites(cfg, n_patches, hw=None):
     """(Cin, H, W, Cout) -> count of GN -> swish -> conv3x3 pairs (both
     convs of every ResnetBlock) over one UNet forward on (H, W) = ``hw``
-    inputs (default: the patch), from a forward on the meta device."""
+    inputs (default: the size the UNet works at), from a forward on the
+    meta device."""
     import torch
     from collections import Counter
 
     from wavedm_tpu_torch.models.layers import ResnetBlock
-    from wavedm_tpu_torch.models.unet import DiffusionUNet
 
-    with torch.device("meta"):
-        unet = DiffusionUNet.from_config(cfg, fused_gn=False,
-                                         fused_block=False)
-        sites = Counter()
-        for m in unet.modules():
-            if isinstance(m, ResnetBlock):
-                for conv in (m.conv1, m.conv2):
-                    conv.register_forward_hook(
-                        lambda mod, inp, out: sites.update(
-                            [tuple(inp[0].shape[1:]) + (out.shape[1],)]))
-        unet(torch.empty(n_patches, cfg.model.unet_in_channels,
-                         *(hw or (cfg.data.image_size,) * 2)),
-             torch.empty(n_patches))
+    unet, x = unet_body(cfg, n_patches, hw, fused_gn=False,
+                        fused_block=False)
+    sites = Counter()
+    for m in unet.modules():
+        if isinstance(m, ResnetBlock):
+            for conv in (m.conv1, m.conv2):
+                conv.register_forward_hook(
+                    lambda mod, inp, out: sites.update(
+                        [tuple(inp[0].shape[1:]) + (out.shape[1],)]))
+    unet(x, torch.empty(n_patches, device="meta"))
     return sites
 
 
@@ -633,7 +661,8 @@ def synthetic_images(seed, n=N_IMAGES):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH] / max(HEIGHT, WIDTH)
+    side = max(HEIGHT, WIDTH)
+    yy, xx = np.mgrid[0:HEIGHT, 0:WIDTH] / side
     imgs = []
     for _ in range(n):
         img = np.zeros((HEIGHT, WIDTH, 3))
@@ -641,12 +670,14 @@ def synthetic_images(seed, n=N_IMAGES):
             f, p = rng.uniform(1, 6, 2), rng.uniform(0, 2 * np.pi, 2)
             img[..., c] = 0.5 + 0.25 * np.sin(f[0] * 2 * np.pi * xx + p[0]) \
                 * np.cos(f[1] * 2 * np.pi * yy + p[1])
-        for _ in range(60):
-            cy, cx = rng.uniform(0, HEIGHT), rng.uniform(0, WIDTH)
-            r = rng.uniform(4, 18)
-            d2 = ((yy * max(HEIGHT, WIDTH) - cy) ** 2
-                  + (xx * max(HEIGHT, WIDTH) - cx) ** 2)
-            img += 0.3 * np.exp(-d2 / (2 * r * r))[..., None]
+        drops = np.array([(rng.uniform(0, HEIGHT), rng.uniform(0, WIDTH),
+                           rng.uniform(4, 18)) for _ in range(60)])
+        # each drop's Gaussian is separable: the 60 drops sum as one
+        # (H x 60) @ (60 x W) product, not 60 passes over the image
+        cy, cx, r2 = drops[:, 0], drops[:, 1], 2 * drops[:, 2] ** 2
+        gy = np.exp(-(yy[:, :1] * side - cy) ** 2 / r2)        # (H, 60)
+        gx = np.exp(-(xx[:1].T * side - cx) ** 2 / r2)         # (W, 60)
+        img += 0.3 * (gy @ gx.T)[..., None]
         img += rng.normal(0, 0.02, img.shape)
         imgs.append(np.clip(img, 0, 1))
     return np.stack(imgs).astype(np.float32)
@@ -1326,7 +1357,7 @@ def eval_phase(launches):
             counts = read_counts()
             got = {k: v for k, v in counts.items() if v}
             assert got == want, (name, got, want)
-            for key, val in counts.items():
+            for key, val in got.items():
                 launches[key] += val
 
         metrics = {}
@@ -1966,10 +1997,11 @@ def variant_restore(name, rest, inp, want, n_timed=1):
     return out, got, first_ms, sum(runs) / len(runs) if runs else None, peak
 
 
-def gn_row(gen, sites, n, dtype, tag, swish, phase):
+def gn_row(gen, sites, n, dtype, tag, swish, phase, timed=True):
     """GroupNorm(+swish) at every ``swish`` site of ``sites`` at batch ``n``
     against its plain version (the tolerances of :func:`check_kernels`),
-    its times summed over one UNet forward: one row of the kernel table."""
+    its times (unless not ``timed``) summed over one UNet forward: one row
+    of the kernel table."""
     import torch
     import torch.nn.functional as F
 
@@ -1993,6 +2025,12 @@ def gn_row(gen, sites, n, dtype, tag, swish, phase):
         diff = (y.float() - yp.float()).abs()
         excess = float((diff - rtol * yp.float().abs()).max())
         assert excess <= atol, (tag, n, c, h, w, swish, excess)
+        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        if not timed:
+            emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish
+                                                      else ""),
+                 shape=[n, c, h, w], max_abs_err=float(diff.max()))
+            continue
         wl, bl = wt.to(dtype), bs.to(dtype)
 
         def lib():
@@ -2011,7 +2049,6 @@ def gn_row(gen, sites, n, dtype, tag, swish, phase):
              max_abs_err=float(diff.max()),
              share_of_bound=vals["bound_ms"] / vals["device_ms"],
              plan=gn_plan(gn, n, c, h * w, dtype), **vals)
-        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
         for key, val in vals.items():
             row[key] += count * val
         del x, y, yp
@@ -2034,11 +2071,13 @@ def fused_row(gen, cfg, n, dtype, tag, phase, hw=None, timed=True,
     return row
 
 
-def variant_train(name, cfg, phase="variants"):
-    """One steady-state step of ``DiffusionTrainer`` on ``cfg``'s domain
-    through ``fused_resblock``, on synthetic crops (with the whole image on
-    the global domain): a warm-up step, then two steps with the launch
-    counts set to 0 just before them.  Returns the counts."""
+def variant_train(name, cfg, phase="variants", steps=2, wavelet=None):
+    """``steps`` steady-state steps of ``DiffusionTrainer`` on ``cfg``'s
+    domain through ``fused_resblock``, on synthetic crops (with the whole
+    image on the global domain): a warm-up step, then the steps with the
+    launch counts set to 0 just before them, checked against the fused
+    kernel's sites and ``wavelet`` (the wavelet kernels' launches a step);
+    every parameter with a nonzero gradient moved.  Returns the counts."""
     import itertools
 
     import torch
@@ -2046,8 +2085,8 @@ def variant_train(name, cfg, phase="variants"):
     from wavedm_tpu_torch.cli.train_diffusion import smoke_batches
     from wavedm_tpu_torch.training.trainer import DiffusionTrainer
 
-    trainer = DiffusionTrainer(cfg, device="cuda", log_fn=lambda msg: None)
-    batches = list(itertools.islice(smoke_batches(cfg)(0), 3))
+    trainer = DiffusionTrainer(cfg, device=DEV, log_fn=lambda msg: None)
+    batches = list(itertools.islice(smoke_batches(cfg)(0), steps + 1))
 
     def step(batch):
         if trainer.lap_state is not None:
@@ -2056,29 +2095,37 @@ def variant_train(name, cfg, phase="variants"):
         return trainer.train_step(trainer.state, batch)
 
     step(batches[0])
+    p0 = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t = time.perf_counter()
     metrics = [step(b) for b in batches[1:]]
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3 / 2
+    ms = (time.perf_counter() - t) * 1e3 / steps
     got = {k: v for k, v in read_counts().items() if v}
     tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
     want = {f"fused_gn_swish_conv_{tag}":
-            2 * sum(fused_sites(cfg, 1).values())}
+            steps * sum(fused_sites(cfg, 1).values())}
     if cfg.data.global_attn:
-        want["wavelet_dec"] = 2 * 3      # cond and gt crops, the total
+        wavelet = {"wavelet_dec": 3}     # cond and gt crops, the total
+    want.update({k: steps * v for k, v in (wavelet or {}).items()})
     assert got == want, (name, got, want)
     loss = [float(m.loss) for m in metrics]
     assert all(map(math.isfinite, loss)), loss
+    graded = [k for k, p in trainer.model.named_parameters()
+              if p.grad is not None and p.grad.any()]
+    still = [k for k in graded if torch.equal(
+        trainer.model.get_parameter(k).detach(), p0[k])]
+    assert not still, (name, still)
     emit(phase, train=name, crops=cfg.training.patch_n,
          patch=cfg.data.patch_size, dtype=cfg.parallel.compute_dtype,
          params_unet=sum(p.numel() for p in trainer.model.parameters()),
          launches=got, ms_per_step=ms,
          peak_bytes=torch.cuda.max_memory_allocated(), loss=loss,
-         loss_trans=[float(m.loss_trans) for m in metrics])
-    del trainer, batches, metrics
+         loss_trans=[float(m.loss_trans) for m in metrics],
+         tensors=len(p0), tensors_moved=len(graded))
+    del trainer, batches, metrics, p0
     torch.cuda.empty_cache()
     return got
 
@@ -2466,6 +2513,526 @@ def variants_phase(launches, rows):
     emit("variants", seconds=time.perf_counter() - t_phase)
 
 
+SWITCH_SIDE = 256       # the pixel switches' image: 81 patches of 128x128
+GRAD_SHAPE = (90, 6, 256, 256)   # a wavelet_in_unet UNet call's input
+SWITCH_CROPS = 8        # crops of each switch's training step
+AUX_BATCH = 8           # stage 1's batch of 720x480 pairs, aux terms on
+# the reference profile's UNet, taking the DWT itself on 256x256 pixels
+WAVELET_IN_UNET = dict(
+    data__wavelet_in_unet=True, data__image_size=256, data__patch_size=256,
+    model__in_channels=3, model__pred_channels=3, model__out_ch=48,
+    model__use_other_channels=False, model__other_channels_begin=0,
+    sampling__grid_r=64)
+# the pixel profile with its 128x128 patches cut into 2x2 tiles of 64x64,
+# or with the FFT amplitude and phase beside the cond pixels
+WINDOW = dict(data__use_window=True, data__window_size=2, model__out_ch=12)
+FFT = dict(data__use_fft=True, model__in_channels=9)
+SWITCH_SMALL = {
+    "wavelet_in_unet": ("reference", {
+        "data": {"wavelet_in_unet": True, "image_size": 32,
+                 "patch_size": 32},
+        "model": {"in_channels": 3, "pred_channels": 3, "out_ch": 48,
+                  "use_other_channels": False, "other_channels_begin": 0,
+                  "attn_resolutions": [16]},
+        "sampling": {"grid_r": 16}}, (64, 96)),
+    "use_window": ("pixel", {
+        "data": {"use_window": True, "window_size": 2, "image_size": 16,
+                 "patch_size": 16},
+        "model": {"out_ch": 12, "attn_resolutions": [8]},
+        "sampling": {"grid_r": 8}}, (32, 48)),
+    "use_fft": ("pixel", {
+        "data": {"use_fft": True, "image_size": 16, "patch_size": 16},
+        "model": {"in_channels": 9, "attn_resolutions": [8]},
+        "sampling": {"grid_r": 8}}, (32, 48)),
+}
+
+
+def switch_parity():
+    """Each switch at a small size (width 32, two levels, T = 50) on the
+    card (kernels) against the same path on the CPU (plain versions),
+    float32, the same weights and noise: a 3-step restore through each
+    kernel route within 1e-4 (the CPU tests hold the CPU path to JAX to
+    this bound), and one SGD train step through ``fused_resblock``, loss
+    and parameters within 1e-4 relative (under ``wavelet_in_unet`` its
+    backward runs the DWT kernel as the IWT's gradient)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import PROFILES, config_from_dict
+    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.training.trainer import DiffusionTrainer
+
+    rng = np.random.default_rng(SEED + 9)
+    for name, (base, changes, (h, w)) in SWITCH_SMALL.items():
+        raw = dataclasses.asdict(PROFILES[base]())
+        for section, values in changes.items():
+            raw[section].update(values)
+        raw["model"].update(ch=32, ch_mult=[1, 2], num_res_blocks=1)
+        raw["diffusion"]["num_diffusion_timesteps"] = 50
+        raw["sampling"].update(sampling_timesteps=3)
+        raw["training"].update(patch_n=4)
+        raw["optim"].update(optimizer="SGD", lr=1e-3)
+        images = rng.random((2, h, w, 3), dtype=np.float32)
+        noise = torch.randn(2, 3, h, w,
+                            generator=torch.Generator().manual_seed(1))
+        weights = None
+        for route in ("fused_groupnorm", "fused_resblock"):
+            raw["parallel"] = {route: True}
+            cfg = config_from_dict(raw)
+            cpu = build_restorer(cfg, weights, device="cpu")
+            weights = weights or cpu.unet.state_dict()
+            ref, _ = cpu.restore_image(images, noise=noise)
+            reset_counts()
+            out, _ = build_restorer(cfg, weights, device=DEV
+                                    ).restore_image(images, noise=noise)
+            err = float(np.abs(out - ref).max())
+            emit("switches", parity=name, route=route, shape=list(out.shape),
+                 max_abs_err=err, tol=1e-4,
+                 launches={k: v for k, v in read_counts().items() if v})
+            assert err <= 1e-4, (name, route, err)
+        p = raw["data"]["patch_size"]
+        batch = rng.random((4, p, p, 6), dtype=np.float32)
+        t = torch.tensor([3, 46, 20, 29])
+        e = torch.randn(4, 3, p, p, generator=torch.Generator().manual_seed(2))
+        steps = []
+        for dev in ("cpu", DEV):
+            trainer = DiffusionTrainer(cfg, device=dev, log_fn=lambda m: None)
+            trainer.model.load_state_dict(weights)
+            reset_counts()
+            m = trainer.train_step(trainer.state, batch, t=t, e=e)
+            steps.append((float(m.loss), {
+                k: v.cpu() for k, v in trainer.model.state_dict().items()}))
+        counts = {k: v for k, v in read_counts().items() if v}
+        if name == "wavelet_in_unet":
+            assert counts.get("wavelet_rec_backward") == 1, counts
+        (l0, sd0), (l1, sd1) = steps
+        errs = [abs(l1 - l0) / abs(l0),
+                max(float((sd1[k] - sd0[k]).abs().max() / sd0[k].abs().max())
+                    for k in sd0)]
+        emit("switches", parity=name, train_step="SGD", launches=counts,
+             loss_rel_err=errs[0], param_rel_err=errs[1], tol_rel=1e-4)
+        assert max(errs) <= 1e-4, (name, errs)
+
+
+def wavelet_grad_rows():
+    """The DWT/IWT kernels where ``wavelet_in_unet`` puts them, at a
+    full-width restore's UNet call (90 patches of 256x256): the DWT of
+    each 3-channel slice of the (90, 6, 256, 256) input, read in place and
+    written into its half of the (90, 96, 64, 64) tensor conv_in takes;
+    the IWT of the (90, 48, 64, 64) output; and under autograd each
+    Function's backward (the other kernel on the gradient, the gradient's
+    channel slices for the DWT) against plain autograd of the plain
+    version, within 1e-6 of the gradient's scale.  Returns the rows of
+    the kernel table: {name: row}; the DWT's backward runs on no path
+    (the UNet's input takes no gradient) and gets none."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import wavelet_cuda as wv
+    from wavedm_tpu_torch.ops.wavelet import conv_weights
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    src = dict(source="wavedm_tpu_torch/csrc/wavelet.cu", bound_by="bytes")
+    dec_at, rec_at = "wavedm_tpu/ops/wavelet_pallas.py:44", \
+        "wavedm_tpu/ops/wavelet_pallas.py:60"
+    bank = torch.as_tensor(conv_weights(2, 3), device=DEV)
+    tol = 2e-6
+    x6 = torch.rand(GRAD_SHAPE, device=DEV, generator=gen) * 2 - 1
+    z = wv.wavelet_dec_cat([x6[:, :3], x6[:, 3:]])
+    zp = torch.cat([wv.wavelet_dec_plain(x6[:, :3]),
+                    wv.wavelet_dec_plain(x6[:, 3:])], dim=1)
+    y = wv.wavelet_rec_cuda(z[:, :48].contiguous())
+    torch.cuda.synchronize()
+    dec_err = float((z - zp).abs().max())
+    rt_err = float((y - x6[:, :3]).abs().max())
+    assert dec_err <= tol and rt_err <= tol, (dec_err, rt_err)
+    rows = {}
+    xs = x6[:, :3]
+    rows["wavelet_dec@wavelet_in_unet"] = dict(
+        src, replaces=dec_at, max_abs_err=dec_err,
+        ms=time_ms(lambda: wv.wavelet_dec_cuda(xs)),
+        device_ms=device_ms(lambda t: wv.wavelet_dec_cuda(t[:, :3]), x6),
+        plain_ms=time_ms(lambda: wv.wavelet_dec_plain(xs)),
+        bound_ms=bound_ms(xs, z[:, :48]),
+        library_ms=time_ms(lambda: F.conv2d(xs, bank, stride=4, groups=3)))
+    z48 = z[:, :48].contiguous()
+    y = wv.wavelet_rec_cuda(z48)
+    rec_err = float((y - wv.wavelet_rec_plain(z48)).abs().max())
+    assert rec_err <= tol, rec_err
+    z_lib = F.conv2d(xs, bank, stride=4, groups=3)
+    rows["wavelet_rec@wavelet_in_unet"] = dict(
+        src, replaces=rec_at, max_abs_err=rec_err,
+        ms=time_ms(lambda: wv.wavelet_rec_cuda(z48)),
+        device_ms=device_ms(wv.wavelet_rec_cuda, z48),
+        plain_ms=time_ms(lambda: wv.wavelet_rec_plain(z48)),
+        bound_ms=bound_ms(z48, y),
+        library_ms=time_ms(lambda: F.conv_transpose2d(z_lib, bank, stride=4,
+                                                      groups=3)))
+    del z_lib, zp
+
+    # the gradients: the Functions' backward against plain autograd
+    g = torch.randn(y.shape, device=DEV, generator=gen)
+    zq, zr = z48.clone().requires_grad_(), z48.clone().requires_grad_()
+    (wv.wavelet_rec_cuda(zq) * g).sum().backward()
+    (wv.wavelet_rec_plain(zr) * g).sum().backward()
+    gz = torch.randn(z.shape, device=DEV, generator=gen)
+    xq, xr = x6.clone().requires_grad_(), x6.clone().requires_grad_()
+    (wv.wavelet_dec_cat([xq[:, :3], xq[:, 3:]]) * gz).sum().backward()
+    (torch.cat([wv.wavelet_dec_plain(xr[:, :3]),
+                wv.wavelet_dec_plain(xr[:, 3:])], dim=1) * gz
+     ).sum().backward()
+    torch.cuda.synchronize()
+    diffs = {"rec_backward": float((zq.grad - zr.grad).abs().max()),
+             "dec_backward": float((xq.grad - xr.grad).abs().max())}
+    errs = {"rec_backward": diffs["rec_backward"] / float(
+                zr.grad.abs().max()),
+            "dec_backward": diffs["dec_backward"] / float(
+                xr.grad.abs().max())}
+    assert max(errs.values()) <= 1e-6, errs
+    del zq, zr, xq, xr
+    rows["wavelet_rec_backward@wavelet_in_unet_train"] = dict(
+        src, replaces=dec_at, max_abs_err=diffs["rec_backward"],
+        ms=time_ms(lambda: wv.WaveletRec.backward(None, g)),
+        device_ms=device_ms(lambda t: wv.WaveletRec.backward(None, t), g),
+        plain_ms=time_ms(lambda: wv.wavelet_dec_plain(g)),
+        bound_ms=bound_ms(g, z48),
+        library_ms=time_ms(lambda: F.conv2d(g, bank, stride=4, groups=3)))
+    # the DWT's backward on the gradient's two channel slices: measured,
+    # no row (no path runs it)
+    ctx = types.SimpleNamespace(widths=[3, 3], needs_input_grad=(True, True))
+    emit("switches", kernel="wavelet_dec_backward", shape=list(gz.shape),
+         grad_rel_err=errs["dec_backward"], tol_rel=1e-6,
+         ms=time_ms(lambda: wv.WaveletDecCat.backward(ctx, gz)),
+         device_ms=device_ms(lambda t: wv.WaveletDecCat.backward(ctx, t),
+                             gz),
+         plain_ms=time_ms(lambda: torch.cat(
+             [wv.wavelet_rec_plain(gz[:, :48]),
+              wv.wavelet_rec_plain(gz[:, 48:])], dim=1)),
+         bound_ms=bound_ms(gz, x6), launches_on_paths=0)
+    emit("switches", kernel="wavelet_grad", rec_backward_rel_err=errs[
+        "rec_backward"], dec_backward_rel_err=errs["dec_backward"],
+         tol_rel=1e-6, dec_err=dec_err, rec_err=rec_err, roundtrip_err=rt_err,
+         tol=tol)
+    del x6, z, z48, y, g, gz
+    torch.cuda.empty_cache()
+    return rows
+
+
+def aux_parity():
+    """Stage 1's aux models on the card against the CPU, float32: HFRM
+    (tlc=...) at full width on one 720x480 image, WDNet and SAM at small
+    sizes, and a small HFRM (dim 16) step with the GAN and perceptual
+    terms from the same weights: both losses, the PSNR and every gradient
+    of the generator against the CPU's, the discriminator's against its
+    float64 gradient (:func:`disc_grad_f64`)."""
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import config_from_dict
+    from wavedm_tpu_torch.inference.loader import init_random_
+    from wavedm_tpu_torch.models.hfrm import HFRM
+    from wavedm_tpu_torch.models.sam import SAM
+    from wavedm_tpu_torch.models.wdnet import WDNet
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    # HFRM with TLC at full width on one 720x480 image: windows of half
+    # the image's sides at each level (base size half the training size)
+    tlc = ((HEIGHT // 2, WIDTH // 2), (HEIGHT, WIDTH))
+    x = torch.from_numpy(synthetic_images(SEED + 2, 1)).permute(0, 3, 1, 2)
+    res = []
+    for dev in ("cpu", DEV):
+        with torch.device("meta"):
+            m = HFRM(tlc=tlc)
+        m = m.to_empty(device=dev)
+        with torch.no_grad():
+            if res:
+                m.load_state_dict(res[0][1])
+            else:
+                init_random_(m, torch.Generator().manual_seed(SEED))
+                for name, p in m.named_parameters():
+                    if name.endswith(("beta", "gamma")):
+                        p.fill_(0.5)
+            res.append((m(x.to(dev)).cpu(), m.state_dict()))
+    with torch.no_grad():       # the same network, global pooling
+        for mod in m.modules():
+            if hasattr(mod, "tlc"):
+                mod.tlc = None
+        plain_pool = m(x.to(DEV)).cpu()
+    err = float((res[1][0] - res[0][0]).abs().max() / res[0][0].abs().max())
+    moved = float((plain_pool - res[1][0]).abs().max())
+    emit("switches", check="HFRM(tlc) 720x480, card vs CPU (float32)",
+         tlc=tlc, rel_err=err, tol_rel=1e-4,
+         tlc_vs_global_pool=moved)
+    assert err <= 1e-4 and moved > 1e-3, (err, moved)
+
+    for name, net, shape in (("WDNet", WDNet, (2, 48, 32, 48)),
+                             ("SAM", lambda: SAM(64, 32), (2, 64, 16, 24))):
+        xs = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+        outs, sd = [], None
+        for dev in ("cpu", DEV):
+            m = net().to(dev)
+            if sd is None:
+                init_random_(m, torch.Generator().manual_seed(SEED))
+                sd = m.state_dict()
+            m.load_state_dict(sd)
+            with torch.no_grad():
+                outs.append(m(xs.to(dev)).cpu())
+        err = float((outs[1] - outs[0]).abs().max() / outs[0].abs().max())
+        emit("switches", check=f"{name} {list(shape)}, card vs CPU",
+             rel_err=err, tol_rel=1e-4)
+        assert err <= 1e-4, (name, err)
+
+    cfg = config_from_dict({"hfrm": {
+        "dim": 16, "enc_blk_nums": [1, 1], "middle_blk_num": 1,
+        "dec_blk_nums": [1, 1], "use_gan": True, "use_perceptual": True}})
+    batch = np.random.default_rng(SEED).random((2, 64, 96, 6),
+                                               dtype=np.float32)
+    out, weights = [], None
+    for dev in ("cpu", DEV):
+        tr = HFRMTrainer(cfg, device=dev, log_fn=lambda s: None)
+        nets = (tr.model, tr.disc_state.model, tr.vgg)
+        if weights is None:
+            init_random_(tr.model, torch.Generator().manual_seed(SEED))
+            with torch.no_grad():
+                for name, p in tr.model.named_parameters():
+                    if name.endswith(("beta", "gamma")):
+                        p.fill_(0.5)
+            weights = [{k: v.clone() for k, v in net.state_dict().items()}
+                       for net in nets]
+        for net, sd in zip(nets, weights):
+            net.load_state_dict(sd)
+        if not out:
+            d_ref = disc_grad_f64(tr, batch)
+        loss, psnr = tr.train_step(batch)
+        grads = {f"0.{k}": p.grad.cpu() for k, p in tr.model.named_parameters()}
+        if out:
+            grads.update({f"1.{k}": p.grad.cpu() for k, p in
+                          tr.disc_state.model.named_parameters()})
+        else:
+            grads.update(d_ref)
+        out.append(([float(loss), float(tr.d_loss), float(psnr)], grads))
+    (s_cpu, g_cpu), (s_gpu, g_gpu) = out
+    scalar_err = max(abs(a - b) / abs(a) for a, b in zip(s_cpu, s_gpu))
+    # the discriminator's conv biases before an InstanceNorm have an exact
+    # gradient of 0 (the norm cancels a per-channel constant): float noise
+    # on either side, not compared
+    noise = {f"1.model.{i}.bias" for i in (2, 5, 8)}
+    errs = sorted(((float((g_gpu[k] - g).abs().max() / g.abs().max()), k,
+                    float(g.abs().max())) for k, g in g_cpu.items()
+                   if k not in noise), reverse=True)
+    grad_err = errs[0][0]
+    emit("switches", check="small HFRM step with GAN + perceptual, card "
+         "(float32) vs CPU (float32; the discriminator's gradient float64)",
+         g_loss=s_gpu[0], d_loss=s_gpu[1],
+         scalar_rel_err=scalar_err, grad_rel_err=grad_err,
+         worst=errs[:6], tol_rel=dict(scalars=1e-4, grad=1e-4))
+    assert scalar_err <= 1e-4 and grad_err <= 1e-4, (scalar_err, grad_err)
+
+
+def disc_grad_f64(tr, batch):
+    """The gradient of ``tr``'s discriminator loss at its current weights,
+    in float64 on the CPU, on the batch and the generator's float32 output
+    (the reference of the card's float32 step: PyTorch's float32 conv
+    backward on the CPU parts from float64 by 6% at the discriminator's
+    4x4 stride-2 convs on these inputs; the card's, TF32 off, by 3e-6)."""
+    import copy
+
+    import torch
+
+    x = torch.as_tensor(batch).permute(0, 3, 1, 2)
+    cond, gt = x[:, :3].contiguous(), x[:, 3:].contiguous()
+    with torch.no_grad():
+        fake = tr.model(cond.to(tr.device)).double().cpu()
+    disc = copy.deepcopy(tr.disc_state.model).cpu().double()
+    cond, gt = cond.double(), gt.double()
+    d_loss = 0.5 * (torch.mean(torch.square(disc(cond, gt) - 1.0))
+                    + torch.mean(torch.square(disc(cond, fake))))
+    d_loss.backward()
+    return {f"1.{k}": p.grad.float() for k, p in disc.named_parameters()}
+
+
+def hfrm_aux_step():
+    """One ``HFRMTrainer`` step at full width (dim 32, float32, TF32 off,
+    ``hfrm.remat``) with the perceptual and GAN terms on, at batch
+    ``AUX_BATCH`` of 720x480 pairs: both losses finite, the discriminator
+    moved, VGG19 frozen; the first (cold) step's ms, then a second step's
+    as the steady ms per step, and the peak memory."""
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import reference_profile
+    from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    cfg = reference_profile()
+    cfg.hfrm.use_gan = cfg.hfrm.use_perceptual = cfg.hfrm.remat = True
+    tr = HFRMTrainer(cfg, device=DEV, log_fn=lambda s: None)
+    cond, gt = synthetic_images(SEED), synthetic_images(SEED + 1)
+    reps = AUX_BATCH // N_IMAGES
+    batch = torch.from_numpy(np.concatenate(
+        [np.concatenate([cond, gt], axis=-1)] * reps)).to(DEV)
+    d0 = {k: v.clone() for k, v in tr.disc_state.model.state_dict().items()}
+    v0 = {k: v.clone() for k, v in tr.vgg.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, psnr = tr.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    g_loss, d_loss = float(loss), float(tr.d_loss)
+    assert math.isfinite(g_loss) and math.isfinite(d_loss), (g_loss, d_loss)
+    assert tr.disc_state.step == 1
+    assert all(not torch.equal(v, d0[k]) for k, v in
+               tr.disc_state.model.state_dict().items() if k.endswith(
+                   "weight")), "the discriminator did not move"
+    assert all(torch.equal(v, v0[k]) for k, v in tr.vgg.state_dict().items())
+    t = time.perf_counter()
+    loss, _ = tr.train_step(batch)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - t) * 1e3
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    assert math.isfinite(float(loss)) and tr.disc_state.step == 2
+    emit("switches", train="hfrm_gan_perceptual", batch=list(batch.shape),
+         params_hfrm=sum(p.numel() for p in tr.model.parameters()),
+         params_disc=sum(p.numel() for p in tr.disc_state.model.parameters()),
+         params_vgg=sum(p.numel() for p in tr.vgg.parameters()),
+         remat=True, dtype="float32", first_step_ms=ms,
+         ms_per_step=steady_ms, peak_bytes=peak,
+         g_loss=g_loss, d_loss=d_loss, psnr=float(psnr))
+    del tr, batch, d0, v0
+    torch.cuda.empty_cache()
+
+
+def switches_phase(launches, rows):
+    """The UNet's switches that no shipped config turns on, and stage 1's
+    aux terms, at full width, random weights from seed 61, chains cut to
+    ``VARIANT_STEPS`` steps:
+
+    - each switch at a small size on the card against the CPU
+      (:func:`switch_parity`);
+    - the DWT/IWT kernels at ``wavelet_in_unet``'s shapes, forward and the
+      IWT's backward, new rows of the kernel table, their gradients
+      against plain autograd (:func:`wavelet_grad_rows`);
+    - ``wavelet_in_unet`` (the reference profile's UNet on 256x256 pixel
+      patches: conv_in 96, out_ch 48): two 720x480 images, 90 patches, in
+      bfloat16 through ``fused_groupnorm`` and in float32 through
+      ``fused_resblock``, each UNet call launching two DWTs and one IWT;
+      one float32 training step on ``SWITCH_CROPS`` crops whose backward
+      launches the DWT kernel as the IWT's gradient;
+    - ``use_window`` (window 2: conv_in 24, out_ch 12) and ``use_fft``
+      (conv_in 12) on the pixel profile: one 256x256 image (81 patches of
+      128x128) in bfloat16 through ``fused_groupnorm``, and one float32
+      training step each;
+    - stage 1's aux models on the card against the CPU
+      (:func:`aux_parity`), and one full-width HFRMTrainer step with the
+      GAN and perceptual terms (:func:`hfrm_aux_step`).
+    """
+    import torch
+
+    from wavedm_tpu_torch.diffusion.sampling import overlapping_grid_corners
+    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.models.unet import conv_in_channels
+
+    t_phase = time.perf_counter()
+    counts = {}
+    switch_parity()
+    new = wavelet_grad_rows()
+    images = synthetic_images(SEED)
+
+    def patches(cfg, h, w):
+        return len(overlapping_grid_corners(h, w, cfg.data.image_size,
+                                            cfg.sampling.grid_r))
+
+    # ---- wavelet_in_unet: B = 2, bfloat16 and float32, and training
+    per_call = {"wavelet_dec": 2, "wavelet_rec": 1}
+    outs = {}
+    for route, dtype in (("fused_groupnorm", "bfloat16"),
+                         ("fused_resblock", "float32")):
+        cfg = variant_cfg("reference", parallel__compute_dtype=dtype,
+                          **{f"parallel__{route}": True}, **WAVELET_IN_UNET)
+        k = N_IMAGES * patches(cfg, HEIGHT, WIDTH)
+        rest = build_restorer(cfg, None, device=DEV)
+        assert rest.hfrm is None
+        n_params = sum(p.numel() for p in rest.unet.parameters())
+        want = site_launches(cfg, route, VARIANT_STEPS)
+        want.update({key: VARIANT_STEPS * v for key, v in per_call.items()})
+        out, got, first_ms, ms, peak = variant_restore(
+            f"wavelet_in_unet {route}", rest, images, want,
+            int(dtype == "bfloat16"))
+        del rest
+        outs[dtype] = out
+        counts[f"wavelet_in_unet_{dtype}"] = got
+        emit("switches", path="wavelet_in_unet", route=route, dtype=dtype,
+             params_unet=n_params, conv_in=conv_in_channels(cfg),
+             images=N_IMAGES,
+             patches=k, steps=VARIANT_STEPS, launches=got,
+             first_ms_per_image=first_ms / N_IMAGES,
+             ms_per_image=ms, peak_bytes=peak)
+    emit("switches", path="wavelet_in_unet", bf16_vs_f32=float(
+        (outs["bfloat16"] - outs["float32"]).abs().max()))
+    del outs
+    counts["wavelet_in_unet_train"] = variant_train(
+        "wavelet_in_unet", variant_cfg(
+            "reference", parallel__fused_resblock=True,
+            training__patch_n=SWITCH_CROPS, **WAVELET_IN_UNET),
+        phase="switches", steps=1,
+        wavelet=dict(per_call, wavelet_rec_backward=1))
+
+    # ---- use_window and use_fft on the pixel profile
+    y0, x0 = (HEIGHT - SWITCH_SIDE) // 2, (WIDTH - SWITCH_SIDE) // 2
+    small = images[:1, y0:y0 + SWITCH_SIDE, x0:x0 + SWITCH_SIDE]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    for name, changes in (("use_window", WINDOW), ("use_fft", FFT)):
+        cfg = variant_cfg("pixel", parallel__compute_dtype="bfloat16",
+                          parallel__fused_groupnorm=True, **changes)
+        k = patches(cfg, SWITCH_SIDE, SWITCH_SIDE)
+        sites = gn_sites(cfg, k)
+        for swish in (True, False):
+            gn_row(gen, sites, k, torch.bfloat16, "bf16", swish, "switches",
+                   timed=False)
+        rest = build_restorer(cfg, None, device=DEV)
+        n_params = sum(p.numel() for p in rest.unet.parameters())
+        out, got, first_ms, ms, peak = variant_restore(
+            name, rest, small, site_launches(cfg, "fused_groupnorm",
+                                             VARIANT_STEPS))
+        del rest
+        counts[name] = got
+        emit("switches", path=name, route="fused_groupnorm",
+             dtype="bfloat16", params_unet=n_params,
+             conv_in=conv_in_channels(cfg),
+             image=[SWITCH_SIDE, SWITCH_SIDE], patches=k,
+             steps=VARIANT_STEPS, launches=got, first_ms_per_image=first_ms,
+             ms_per_image=ms, peak_bytes=peak)
+        tcfg = variant_cfg("pixel", parallel__fused_resblock=True,
+                           training__patch_n=SWITCH_CROPS, **changes)
+        fused_row(torch.Generator(device=DEV).manual_seed(SEED + 9), tcfg,
+                  SWITCH_CROPS, torch.float32, "f32", "switches",
+                  timed=False)
+        counts[f"{name}_train"] = variant_train(name, tcfg,
+                                                phase="switches", steps=1)
+
+    # ---- stage 1's aux models and terms
+    hfrm_aux_step()
+    aux_parity()
+
+    runs = {"wavelet_dec@wavelet_in_unet": "wavelet_in_unet_bfloat16",
+            "wavelet_rec@wavelet_in_unet": "wavelet_in_unet_bfloat16",
+            "wavelet_rec_backward@wavelet_in_unet_train":
+                "wavelet_in_unet_train"}
+    for name, row in new.items():
+        launches[name] = counts[runs[name]].get(name.split("@")[0], 0)
+        assert launches[name] > 0, f"kernel {name} never ran on its path"
+        rows[name] = row
+        emit("switches", kernel=name, launches=launches[name], per="call",
+             **{k: v for k, v in row.items() if k not in ("source",
+                                                          "replaces")})
+    emit("switches", seconds=time.perf_counter() - t_phase)
+
+
 def gn_sweep(cfg, n_patches):
     """The GroupNorm kernel under each launch plan at every flagship site
     shape, swish on (the chosen plan also with swish off): the share of its
@@ -2516,7 +3083,7 @@ def partial(phases, ref_cfg, prod_cfg):
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
     training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
-    ``serve`` and ``variants``."""
+    ``serve``, ``variants`` and ``switches``."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
@@ -2534,6 +3101,8 @@ def partial(phases, ref_cfg, prod_cfg):
         serve_phase(scratch)
     if "variants" in phases:
         variants_phase(scratch, {})
+    if "switches" in phases:
+        switches_phase(scratch, {})
     if "restore" in phases:
         from wavedm_tpu_torch.inference.loader import build_restorer
 
@@ -2559,7 +3128,7 @@ def main(argv=None):
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
                     "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
-                    "serve,variants to run alone; no final lines")
+                    "serve,variants,switches to run alone; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -2686,6 +3255,7 @@ def main(argv=None):
     eval_phase(launches)
     serve_phase(launches)
     variants_phase(launches, rows)
+    switches_phase(launches, rows)
 
     # the reference profile (float32, TF32 off, 25 steps from noise) with
     # the fused kernel at all 44 pairs, against the reference restore with
@@ -2731,7 +3301,8 @@ def main(argv=None):
         n_crops = cfg.training.batch_size * cfg.training.patch_n
         counts = train_profile(name, cfg, n_crops, hfrm)
         for key, val in counts.items():
-            launches[key] += val
+            if val:
+                launches[key] += val
     del hfrm_train
     torch.cuda.empty_cache()
 

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
 a small restoration and a train step through the kernels against the CPU
-path, and the kernels' refusal of autograd.
+path, the GroupNorm kernel's refusal of autograd and the wavelet kernels'
+gradient.
 
 Marked ``cuda``; every test skips where no card is present.  On the GPU
 machine (which has no jax, so the JAX conftest is left out):
@@ -353,20 +354,43 @@ def test_fused_gradients_match_autograd_of_the_composition(cuda, shape):
 
 
 def test_kernel_wrappers_refuse_autograd_on_the_card(cuda):
-    """None of the PR 4 kernels has a gradient: under autograd they raise
-    rather than hand back a tensor that cuts the graph."""
+    """The GroupNorm kernel has no gradient: under autograd it raises
+    rather than hand back a tensor that cuts the graph.  The wavelet
+    kernels have one (``test_wavelet_gradients_match_plain_autograd``)."""
     x = torch.randn(1, 32, 8, 8, device=cuda, requires_grad=True)
     w, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
     with pytest.raises(RuntimeError, match="no gradient"):
         groupnorm_cuda.group_norm(x, w, b, swish=True)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        wavelet_cuda.wavelet_dec_cuda(x[:, :3].contiguous())
-    with pytest.raises(RuntimeError, match="no gradient"):
-        wavelet_cuda.wavelet_rec_cuda(x[:, :16].contiguous())
     with torch.no_grad():
         groupnorm_cuda.group_norm(x, w, b, swish=True)
-        wavelet_cuda.wavelet_rec_cuda(wavelet_cuda.wavelet_dec_cuda(
-            x[:, :3].contiguous()))
+    assert wavelet_cuda.wavelet_dec_cuda(x[:, :3]).requires_grad
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 16, 24), (2, 9, 256, 256)])
+def test_wavelet_gradients_match_plain_autograd(cuda, shape):
+    """The DWT of two channel slices, read in place, and the IWT of the
+    result under autograd on the card: forward and backward (each Function
+    launching the other kernel) against plain autograd of the plain
+    versions, within 1e-6 of the gradient's scale."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.rand(shape, device=cuda, generator=g) * 2 - 1
+         ).requires_grad_()
+    xp = x.detach().clone().requires_grad_()
+    before = dict(wavelet_cuda.launches)
+    z = wavelet_cuda.wavelet_dec_cat([x[:, :3], x[:, 3:]])
+    y = wavelet_cuda.wavelet_rec_cuda(z[:, :48] * 2.0)
+    zp = torch.cat([wavelet_cuda.wavelet_dec_plain(xp[:, :3]),
+                    wavelet_cuda.wavelet_dec_plain(xp[:, 3:])], dim=1)
+    yp = wavelet_cuda.wavelet_rec_plain(zp[:, :48] * 2.0)
+    w = torch.randn(y.shape, device=cuda, generator=g)
+    ((y * w).sum() + z.square().sum()).backward()
+    ((yp * w).sum() + zp.square().sum()).backward()
+    torch.testing.assert_close(y, yp, atol=2e-6, rtol=0)
+    err = float((x.grad - xp.grad).abs().max())
+    assert err <= 1e-6 * float(xp.grad.abs().max()), err
+    got = {k: v - before[k] for k, v in wavelet_cuda.launches.items()}
+    assert got == {"wavelet_dec": 2, "wavelet_rec": 1,
+                   "wavelet_dec_backward": 2, "wavelet_rec_backward": 1}
 
 
 def test_train_step_matches_cpu(cuda):

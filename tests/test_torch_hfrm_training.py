@@ -243,13 +243,6 @@ def test_remat_gives_the_same_gradients():
                               * max(float(g.abs().max()), 1e-30)), k
 
 
-def test_perceptual_and_gan_terms_raise():
-    for key in ("use_perceptual", "use_gan"):
-        _, cfg = _configs(_raw(**{key: True}))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-            HFRMTrainer(cfg, device="cpu", **QUIET)
-
-
 # ------------------------------------------------------------- fit, ckpt
 
 

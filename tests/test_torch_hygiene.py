@@ -36,6 +36,22 @@ def test_every_module_imports_without_jax_yaml_or_pil():
             wavedm_tpu_torch.__path__, "wavedm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        # stage 1's aux models and TLC run with the same packages blocked
+        for name in ("ops.tlc", "models.vgg_loss", "models.wdnet",
+                     "models.sam"):
+            assert "wavedm_tpu_torch." + name in names, name
+        import torch
+        from wavedm_tpu_torch.models.sam import SAM
+        from wavedm_tpu_torch.models.vgg_loss import VGG19Features
+        from wavedm_tpu_torch.models.wdnet import Discriminator, WDNet
+        from wavedm_tpu_torch.ops.tlc import local_avg_pool
+        with torch.no_grad():
+            assert WDNet()(torch.zeros(1, 48, 4, 4)).shape == (1, 48, 4, 4)
+            assert SAM(8, 4)(torch.zeros(1, 8, 4, 4)).shape == (1, 1, 4, 4)
+            assert len(VGG19Features()(torch.zeros(1, 3, 16, 16))) == 5
+            z = torch.zeros(1, 3, 32, 32)
+            assert Discriminator()(z, z).shape == (1, 1, 2, 2)
+            assert local_avg_pool(z, (3, 3)).shape == z.shape
         import chip_smoke
         # a tiny restoration on the CPU touches no blocked module either
         from wavedm_tpu_torch.config import Config, DataConfig, ModelConfig

@@ -36,7 +36,6 @@ from wavedm_tpu.training.state import \
 
 from wavedm_tpu_torch.config import PROFILES, config_from_dict, load_config
 from wavedm_tpu_torch.inference.loader import build_restorer
-from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 from wavedm_tpu_torch.training.train_step import prepare_pixel_batch
 from wavedm_tpu_torch.training.trainer import DiffusionTrainer
 from wavedm_tpu_torch.utils import metrics as M
@@ -189,19 +188,6 @@ def test_prepare_pixel_batch_is_the_scaled_pair():
         jnp.asarray(x), jax_config_from_dict(_raw())))
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want,
                                atol=1e-7)
-
-
-@pytest.mark.parametrize("data", [{"use_fft": True},
-                                  {"wavelet_in_unet": True, "wavelet": True}],
-                         ids=["use_fft", "wavelet_in_unet"])
-def test_unported_pixel_switches_raise(uparams, data):
-    """FFT conditioning and the wavelet-in-UNet hook stay unported: the
-    restorer and the trainer raise naming ROADMAP item 15."""
-    cfg = config_from_dict(_raw(data=data))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        DiffusiveRestoration(cfg, torch.nn.Identity(), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        DiffusionTrainer(cfg, **QUIET)
 
 
 @pytest.mark.parametrize("name, path", [

@@ -110,17 +110,14 @@ def test_tiled_sampler_matches_jax(x0_keep):
 
 @pytest.mark.parametrize("option", [
     dict(solver="dpmpp2m", eta=0.5), dict(solver="heun"),
-    dict(pred_type="x0"), dict(use_fft=True),
-    dict(use_fft=True, use_global=True),
-    dict(mesh=object()), dict(patch_micro_batch=-8),
+    dict(pred_type="x0"), dict(mesh=object()), dict(patch_micro_batch=-8),
 ])
 def test_unported_options_raise(option):
-    """The JAX options the port does not carry (FFT conditioning, also
-    beside the global branch, which is ported; a device mesh) raise
+    """The JAX option the port does not carry (a device mesh) raises
     NotImplementedError; settings that JAX refuses or cannot run (a
     stochastic dpmpp2m, an unknown solver or parameterization, a negative
     micro-batch) raise ValueError."""
-    unported = {"use_fft", "mesh"} & set(option)
+    unported = {"mesh"} & set(option)
     with pytest.raises(NotImplementedError if unported else ValueError):
         sampling.make_overlapping_sampler(
             lambda x, t: x, image_shape=(16, 16), patch_size=8, grid_r=4,

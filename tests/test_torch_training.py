@@ -340,19 +340,6 @@ def test_grad_accum_equals_one_pass(unet_params):
             assert _rel(sd2[k].numpy(), sd1[k].numpy()) <= 1e-5, k
 
 
-def test_unported_domains_raise():
-    """The pixel, global and Laplacian domains are ported
-    (tests/test_torch_pixel_path.py and its siblings); the switches no
-    shipped config turns on still raise."""
-    pixel = {"wavelet": False, "image_size": 32}
-    for raw in (_raw(data={**pixel, "use_fft": True}),
-                _raw(data={**pixel, "use_window": True}),
-                _raw(data={"wavelet_in_unet": True})):
-        _, cfg = _configs(raw)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            DiffusionTrainer(cfg, device="cpu")
-
-
 def test_hfrm_weights_required_without_gt():
     _, cfg = _configs(_raw(model={"use_gt_in_train": False}))
     with pytest.raises(ValueError, match="frozen HFRM"):

@@ -108,7 +108,7 @@ def make_validate(trainer, dataset, hfrm_weights,
     from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 
     box = {}
-    need_hfrm = trainer.cfg.data.wavelet
+    need_hfrm = trainer.cfg.data.wavelet_domain
 
     def validate(state, step: int) -> None:
         if need_hfrm and trainer.hfrm is None and hfrm_weights is None:

@@ -13,8 +13,11 @@ geometry (720x480), ``hfrm.batch_size`` a step, streamed from the PNG
 files or, with ``data.device_cache``, gathered from the decoded split held
 on the card.  ``--smoke`` trains on synthetic 192x128 pairs in batches of
 2.  Checkpoints (``lastest``, ``best``) go to ``--ckpt-dir``; ``lastest``
-is what ``--hfrm-ckpt`` of the other entry points takes.  Runs on the card
-unless ``--device`` names another.
+is what ``--hfrm-ckpt`` of the other entry points takes.  The opt-in loss
+terms come on with ``--set hfrm.use_perceptual=true`` (VGG19 features,
+torchvision weights from ``hfrm.vgg_ckpt``) and ``--set hfrm.use_gan=true``
+(the PatchGAN discriminator, checkpointed with the generator).  Runs on
+the card unless ``--device`` names another.
 """
 
 from __future__ import annotations

@@ -40,10 +40,17 @@ class DataConfig:
     data_dir: str = "./data"
     conditional: bool = True
 
+    @property
+    def wavelet_domain(self) -> bool:
+        """The chain and the UNet work on wavelet coefficients, conditioned
+        by a frozen HFRM: the wavelet path, unless the UNet takes the DWT
+        itself (``wavelet_in_unet``, which runs the pixel path's chain)."""
+        return self.wavelet and not self.wavelet_in_unet
+
     def validate(self) -> None:
         if self.wavelet and self.patch_size % 4 != 0:
             raise ConfigError("wavelet path needs patch_size divisible by 4")
-        if self.wavelet and not self.wavelet_in_unet:
+        if self.wavelet_domain:
             if self.image_size * 4 != self.patch_size:
                 raise ConfigError(
                     "wavelet config requires image_size == patch_size / 4 "
@@ -265,7 +272,7 @@ class Config:
             raise ConfigError(
                 "sampling.t_start must be < diffusion.num_diffusion_timesteps")
         if (self.sampling.t_start > 0 and self.sampling.init_ll == "hfrm"
-                and not (self.data.wavelet and not self.data.wavelet_in_unet)):
+                and not self.data.wavelet_domain):
             raise ConfigError("init_ll: hfrm requires the wavelet path")
         return self
 

@@ -11,6 +11,13 @@
 // the main path's 2 x 480 x 720 x 3 image: 8.29 MB read + 8.29 MB written
 // = 4.95 us.
 //
+// Each image of either side may sit at any batch stride (in floats, a
+// multiple of 4) as long as its own (C, H, W) or (16C, h, w) block is
+// contiguous: the UNet's wavelet_in_unet hook reads the channel slices
+// x[:, :3] and x[:, 3:] of one contiguous batch in place and writes each
+// DWT straight into its half of the tensor conv_in takes, and the
+// backward of that DWT reads the matching channel slices of the gradient.
+//
 // Design against that bound: one thread per (b, c, i, j) block.  It reads
 // its block as four 16-byte float4 rows (neighbouring threads read
 // neighbouring 16-byte words, so a warp reads 512 contiguous bytes per row)
@@ -39,6 +46,7 @@ constexpr int kThreads = 256;
 
 __global__ void wavelet_dec_kernel(const float* __restrict__ x,
                                    float* __restrict__ z, int C, int H, int W,
+                                   long long x_bstride, long long z_bstride,
                                    long long total) {
   const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -50,7 +58,8 @@ __global__ void wavelet_dec_kernel(const float* __restrict__ x,
   const int c = (int)(r % C);
   const long long b = r / C;
 
-  const float* src = x + ((b * C + c) * H + 4LL * i) * W + 4LL * j;
+  const float* src = x + b * x_bstride + ((long long)c * H + 4LL * i) * W +
+                     4LL * j;
   float px[16];
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
@@ -61,7 +70,7 @@ __global__ void wavelet_dec_kernel(const float* __restrict__ x,
     px[4 * p + 3] = v.w;
   }
   const long long plane = (long long)h * w;
-  float* dst = z + (b * 16 * C + c) * plane + (long long)i * w + j;
+  float* dst = z + b * z_bstride + c * plane + (long long)i * w + j;
 #pragma unroll
   for (int f = 0; f < 16; ++f) {
     float acc = 0.f;
@@ -73,6 +82,7 @@ __global__ void wavelet_dec_kernel(const float* __restrict__ x,
 
 __global__ void wavelet_rec_kernel(const float* __restrict__ z,
                                    float* __restrict__ x, int C, int H, int W,
+                                   long long z_bstride, long long x_bstride,
                                    long long total) {
   const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -85,12 +95,12 @@ __global__ void wavelet_rec_kernel(const float* __restrict__ z,
   const long long b = r / C;
 
   const long long plane = (long long)h * w;
-  const float* src = z + (b * 16 * C + c) * plane + (long long)i * w + j;
+  const float* src = z + b * z_bstride + c * plane + (long long)i * w + j;
   float co[16];
 #pragma unroll
   for (int f = 0; f < 16; ++f) co[f] = src[(long long)f * C * plane];
 
-  float* dst = x + ((b * C + c) * H + 4LL * i) * W + 4LL * j;
+  float* dst = x + b * x_bstride + ((long long)c * H + 4LL * i) * W + 4LL * j;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     float row[4];
@@ -110,28 +120,43 @@ int launch_blocks(long long total) {
   return (int)((total + kThreads - 1) / kThreads);
 }
 
+bool bad_shape(int B, int C, int H, int W, long long x_bstride,
+               long long z_bstride) {
+  // float4 rows of the pixel side: each image starts 16-byte aligned
+  return B < 0 || C < 0 || H % 4 || W % 4 || x_bstride % 4 ||
+         x_bstride < (long long)C * H * W || z_bstride < (long long)C * H * W;
+}
+
 }  // namespace
 
-// x: (B, C, H, W) float32 contiguous -> z: (B, 16*C, H/4, W/4).
+// x: (B, C, H, W) float32, image b at x + b * x_bstride -> z: (B, 16*C,
+// H/4, W/4), image b at z + b * z_bstride (strides in floats).
 extern "C" int wavelet_dec_f32(const void* x, void* z, int B, int C, int H,
-                               int W, void* stream) {
-  if (B < 0 || C < 0 || H % 4 || W % 4) return (int)cudaErrorInvalidValue;
+                               int W, long long x_bstride,
+                               long long z_bstride, void* stream) {
+  if (bad_shape(B, C, H, W, x_bstride, z_bstride))
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)B * C * (H / 4) * (W / 4);
   if (total == 0) return (int)cudaSuccess;
   wavelet_dec_kernel<<<launch_blocks(total), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(z), C, H, W, total);
+      static_cast<const float*>(x), static_cast<float*>(z), C, H, W,
+      x_bstride, z_bstride, total);
   return (int)cudaGetLastError();
 }
 
-// z: (B, 16*C, H/4, W/4) float32 contiguous -> x: (B, C, H, W).
+// z: (B, 16*C, H/4, W/4) float32, image b at z + b * z_bstride -> x: (B, C,
+// H, W), image b at x + b * x_bstride (strides in floats).
 extern "C" int wavelet_rec_f32(const void* z, void* x, int B, int C, int H,
-                               int W, void* stream) {
-  if (B < 0 || C < 0 || H % 4 || W % 4) return (int)cudaErrorInvalidValue;
+                               int W, long long z_bstride,
+                               long long x_bstride, void* stream) {
+  if (bad_shape(B, C, H, W, x_bstride, z_bstride))
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)B * C * (H / 4) * (W / 4);
   if (total == 0) return (int)cudaSuccess;
   wavelet_rec_kernel<<<launch_blocks(total), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<float*>(x), C, H, W, total);
+      static_cast<const float*>(z), static_cast<float*>(x), C, H, W,
+      z_bstride, x_bstride, total);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,9 @@ deterministic), and ``pred_type`` "eps" or "v" (a velocity output becomes
 the implied epsilon, on the tiled path after the overlap average).  With
 ``eta`` > 0 each step adds noise drawn from an explicit
 ``torch.Generator``, or taken from an injected ``step_noise`` of shape
-(T, B, C, H, W).  ``use_fft`` and ``mesh`` of the JAX sampler are not
-ported and raise.
+(T, B, C, H, W).  With ``use_fft`` each patch's conditioning carries its
+FFT amplitude and phase (:func:`fft_condition`).  ``mesh`` of the JAX
+sampler is not ported and raises (ROADMAP item 13).
 
 With ``use_global`` the model also takes the B whole images and the image
 of each patch it is handed, so every patch attends to its own image's
@@ -32,10 +33,34 @@ import torch
 
 from wavedm_tpu_torch.diffusion.schedules import alpha_bars
 
-__all__ = ["overlapping_grid_corners", "ddim_sample",
+__all__ = ["real_bins", "fft_condition", "overlapping_grid_corners",
+           "ddim_sample",
            "make_overlapping_sampler"]
 
 Steps = List[Dict[str, float]]
+
+
+def real_bins(h: int, w: int) -> np.ndarray:
+    """(h, w) mask of the bins of a real image's 2-D FFT that are real:
+    the DC and Nyquist rows and columns where they meet."""
+    rows, cols = (np.arange(n) * 2 % n == 0 for n in (h, w))
+    return rows[:, None] & cols[None, :]
+
+
+def fft_condition(cond: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 3C, H, W): [cond | |FFT2(cond)| |
+    angle(FFT2(cond))], the 2-D FFT over (H, W) of each channel (JAX's
+    ``fft_condition``).
+
+    The phase is the principal value, in (-pi, pi], of the exact
+    spectrum: the bins of :func:`real_bins` have an imaginary part of
+    exactly 0, where an FFT may leave rounding noise or a -0 that puts a
+    negative bin's phase at -pi.  JAX's does, with a sign that depends on
+    the image (ROADMAP section 3)."""
+    f = torch.fft.fft2(cond)
+    real = torch.as_tensor(real_bins(*cond.shape[-2:]), device=cond.device)
+    imag = torch.where(real, 0.0, f.imag)
+    return torch.cat([cond, f.abs(), torch.atan2(imag, f.real)], dim=1)
 
 
 def overlapping_grid_corners(h: int, w: int, p: int,
@@ -239,12 +264,10 @@ def make_overlapping_sampler(
     and the model is called as ``model_fn(x, t, x_global, index)``, where
     ``index`` (N,) holds the image of each of its N patches.
     """
-    for name, value, item in (("use_fft", use_fft, 15),
-                              ("mesh", mesh is not None, 13)):
-        if value:
-            raise NotImplementedError(
-                f"make_overlapping_sampler: {name} is not ported to the "
-                f"PyTorch sampler (ROADMAP item {item})")
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_overlapping_sampler: mesh is not ported to the PyTorch "
+            "sampler (ROADMAP item 13)")
     _check_chain(solver, eta, pred_type)
     if patch_micro_batch < 0:
         raise ValueError("patch_micro_batch must be >= 0")
@@ -298,7 +321,8 @@ def make_overlapping_sampler(
                              f"image for each of the {b} images")
         counts = torch.as_tensor(counts_np, device=x_init.device)
         noise = _noise_source(eta, generator, step_noise, len(steps), x_init)
-        static_p = [gather(x_cond)]
+        cond_p = gather(x_cond)
+        static_p = [fft_condition(cond_p) if use_fft else cond_p]
         if use_other:
             static_p.append(gather(x_other))
         xt, kept, x0s = x_init, None, []

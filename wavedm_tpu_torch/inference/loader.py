@@ -2,11 +2,12 @@
 
 ``build_restorer(cfg, unet_sd, hfrm_sd, device=None)`` assembles a
 :class:`DiffusiveRestoration` from two state_dicts (or reference
-``.pth``/``.pth.tar`` paths); the pixel and Laplacian paths take no
-HFRM.  ``None`` for either builds that model with random weights drawn
-from ``cfg.training.seed`` by a ``torch.Generator`` (smoke runs and
-tests).  Models are built on the meta device first, so no
-memory is touched before the weights land on the target device.
+``.pth``/``.pth.tar`` paths); the pixel and Laplacian paths and
+``data.wavelet_in_unet`` take no HFRM.  ``None`` for either builds that
+model with random weights drawn from ``cfg.training.seed`` by a
+``torch.Generator`` (smoke runs and tests).  Models are built on the meta
+device first, so no memory is touched before the weights land on the
+target device.
 ``build_unet(..., train=True)`` gives the trainable UNet: float32
 parameters cast at use, train mode, gradients on.  A UNet checkpoint path
 must have been trained with the config's ``training.pred_type`` (a
@@ -107,10 +108,12 @@ def build_restorer(cfg: Config, unet_sd: Weights, hfrm_sd: Weights = None,
     """The restoration runner for a validated config on ``device`` (the
     card when None).  ``ema`` picks the EMA shadow of a UNet checkpoint.
     Only the wavelet path builds the HFRM (random weights when ``hfrm_sd``
-    is None); the pixel and Laplacian paths ignore ``hfrm_sd``."""
+    is None); the pixel and Laplacian paths and ``wavelet_in_unet``
+    ignore ``hfrm_sd``."""
     from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 
     device = resolve_device(device)
     unet = build_unet(cfg, unet_sd, device, ema=ema)
-    hfrm = build_hfrm(cfg, hfrm_sd, device) if cfg.data.wavelet else None
+    hfrm = (build_hfrm(cfg, hfrm_sd, device) if cfg.data.wavelet_domain
+            else None)
     return DiffusiveRestoration(cfg, unet, hfrm, device=device)

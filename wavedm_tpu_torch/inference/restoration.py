@@ -11,8 +11,11 @@ The wavelet path, for a batch of (B, H, W, 3) degraded images in [0, 1]:
   wavelet image reflect-padded to the UNet's 2**(levels-1) -> final x
   [diffusion LL(3) | HFRM HF(45)] -> IWT -> [0,1]
 
-The pixel path (``data.wavelet: false``) runs the chain on the [-1,1]
-pixels themselves, with no HFRM.  The Laplacian path (``data.lap``) takes
+The pixel path (``data.wavelet: false``, and ``data.wavelet_in_unet``,
+whose UNet takes the DWT itself) runs the chain on the [-1,1] pixels
+themselves, with no HFRM; with ``data.use_fft`` its conditioning carries
+the FFT amplitude and phase of each patch (of the whole image on the
+whole-image chain).  The Laplacian path (``data.lap``) takes
 the (B, H, W, 6) [cond | gt] pair, decomposes it with the 2-level Gauss
 pyramid, runs the chain on the coarse cond band at H/4 x W/4 and
 reconstructs with the degraded high bands and the ground truth's low band:
@@ -38,7 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wavedm_tpu_torch.config import Config
-from wavedm_tpu_torch.diffusion.sampling import (ddim_sample,
+from wavedm_tpu_torch.diffusion.sampling import (ddim_sample, fft_condition,
                                                  make_overlapping_sampler)
 from wavedm_tpu_torch.diffusion.schedules import (ddim_timesteps,
                                                   get_beta_schedule)
@@ -79,20 +82,15 @@ class DiffusiveRestoration:
         ``DiffusionUNetGlobal`` with ``data.global_attn``; eval mode, on
         ``device``).
       hfrm: the frozen stage-1 ``HFRM`` on the wavelet path; None on the
-        pixel and Laplacian paths, which take none.
+        pixel and Laplacian paths and under ``wavelet_in_unet``, which
+        take none.
       device: where everything runs; the card when None (raises if there
         is none).
     """
 
     def __init__(self, cfg: Config, unet: nn.Module,
                  hfrm: Optional[nn.Module] = None, device=None):
-        d = cfg.data
-        for name, value in (("wavelet_in_unet", d.wavelet_in_unet),
-                            ("use_fft", d.use_fft)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} restoration is not ported yet (ROADMAP item 15)")
-        if d.wavelet and hfrm is None:
+        if cfg.data.wavelet_domain and hfrm is None:
             raise ValueError("the wavelet path requires a frozen HFRM")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -145,7 +143,8 @@ class DiffusiveRestoration:
             return None
         return None if self.cfg.data.begin_from_noise else cond[:, :pc]
 
-    def _make_sampler(self, h: int, w: int, use_other: bool) -> Callable:
+    def _make_sampler(self, h: int, w: int, use_other: bool,
+                      use_fft: bool = False) -> Callable:
         """The chain for (h, w) in the UNet's domain: tiled, or with
         ``sampling.whole_image`` over the whole image, reflect-padded to
         the UNet's 2**(levels-1) divisibility and cropped back.  Both map
@@ -165,6 +164,7 @@ class DiffusiveRestoration:
                 grid_r=cfg.sampling.grid_r,
                 pred_channels=m.pred_channels,
                 use_other=use_other,
+                use_fft=use_fft,
                 use_global=use_global,
                 patch_micro_batch=cfg.sampling.patch_micro_batch,
                 x0_keep=cfg.sampling.x0_pred_index,
@@ -182,6 +182,9 @@ class DiffusiveRestoration:
         def sample(x_init, x_cond, x_other=None, generator=None,
                    step_noise=None, x_global=None):
             other_p = None if x_other is None else reflect(x_other)
+            cond_p = reflect(x_cond)
+            if use_fft:
+                cond_p = fft_condition(cond_p)
 
             def model_fn(xx, tt):
                 # ddim_sample hands over [cond | xt]; the HF channels follow
@@ -190,7 +193,7 @@ class DiffusiveRestoration:
                 return self.unet(xx, tt)
 
             x_final, x0s = ddim_sample(
-                model_fn, reflect(x_init), reflect(x_cond),
+                model_fn, reflect(x_init), cond_p,
                 generator=generator, step_noise=step_noise, **chain)
             return x_final[:, :, :h, :w], x0s[..., :h, :w]
 
@@ -237,7 +240,8 @@ class DiffusiveRestoration:
     def _build_pixel_restore(self, h: int, w: int) -> Callable:
         """Restore pipeline for the pixel path: the chain on the [-1,1]
         pixels; the second output is the cond image passed through."""
-        sampler = self._make_sampler(h, w, use_other=False)
+        sampler = self._make_sampler(h, w, use_other=False,
+                                     use_fft=self.cfg.data.use_fft)
 
         def restore(cond_pixel, noise, generator, step_noise):
             cond_n = data_transform(cond_pixel)
@@ -287,7 +291,8 @@ class DiffusiveRestoration:
                              "channels")
         if (h, w) not in self._restore_fns:
             build = (self._build_lap_restore if self.cfg.data.lap else
-                     self._build_wavelet_restore if self.cfg.data.wavelet
+                     self._build_wavelet_restore
+                     if self.cfg.data.wavelet_domain
                      else self._build_pixel_restore)
             self._restore_fns[(h, w)] = build(h, w)
         return self._restore_fns[(h, w)]
@@ -316,7 +321,7 @@ class DiffusiveRestoration:
             x = x[None]
         b, h, w, nch = x.shape
         fn = self._get_restore_fn(h, w, nch)
-        if self.cfg.data.wavelet or self.cfg.data.lap:
+        if self.cfg.data.wavelet_domain or self.cfg.data.lap:
             if h % 4 or w % 4:
                 raise ValueError(f"image dims {(h, w)} must be divisible "
                                  "by 4")

@@ -11,12 +11,15 @@ them: stored in it for serving, or (``keep_f32_params``, training) float32
 parameters cast at each use, as the JAX model's flax ``dtype=`` does.
 ``remat`` recomputes each block's interior in the backward
 (``torch.utils.checkpoint``), as the JAX model's ``nn.remat`` does.
+``tlc`` = ((base_h, base_w), (train_h, train_w)) turns every channel
+attention's global pool into TLC's local windowed mean (``ops/tlc.py``),
+as the JAX model's constructor argument of that name does.
 :func:`identity_center_init_` is the stage-1 trainer's starting point.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,11 +28,14 @@ from torch.utils.checkpoint import checkpoint
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.layers import Conv2d, cast_compute
+from wavedm_tpu_torch.ops.tlc import local_avg_pool, tlc_kernel
 
 __all__ = ["LayerNorm2d", "ChannelAttn", "HFRMBlock", "HFRM",
            "identity_center_init_"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# TLC's ((base_h, base_w), (train_h, train_w)); None: global pooling
+TLC = Optional[Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
 class LayerNorm2d(nn.Module):
@@ -57,25 +63,33 @@ def simple_gate(x: torch.Tensor) -> torch.Tensor:
 
 
 class ChannelAttn(nn.Module):
-    """Global average pool -> 1x1 conv -> channel scale."""
+    """Global average pool (TLC's local mean with ``tlc``) -> 1x1 conv ->
+    channel scale."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, tlc: TLC = None):
         super().__init__()
         self.chan_conv = Conv2d(channels, channels, 1)
+        self.tlc = tlc
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.chan_conv(x.mean(dim=(2, 3), keepdim=True))
+        if self.tlc is None:
+            s = x.mean(dim=(2, 3), keepdim=True)
+        else:
+            base_hw, train_hw = self.tlc
+            s = local_avg_pool(x, tlc_kernel(tuple(x.shape[2:]), train_hw,
+                                             base_hw))
+        return x * self.chan_conv(s)
 
 
 class HFRMBlock(nn.Module):
     """One NAFNet-style residual block with zero-initialised beta/gamma."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, tlc: TLC = None):
         super().__init__()
         self.norm1 = LayerNorm2d(dim)
         self.conv1 = Conv2d(dim, dim * 2, 1)
         self.conv2 = Conv2d(dim * 2, dim * 2, 3, padding=1, groups=dim * 2)
-        self.channel_attn = ChannelAttn(dim)
+        self.channel_attn = ChannelAttn(dim, tlc)
         self.conv3 = Conv2d(dim, dim, 1)
         self.norm2 = LayerNorm2d(dim)
         self.conv4 = Conv2d(dim, dim * 2, 1)
@@ -99,7 +113,7 @@ class HFRM(nn.Module):
                  enc_blk_nums: Tuple[int, ...] = (2, 2, 2, 4),
                  dec_blk_nums: Tuple[int, ...] = (2, 2, 2, 2),
                  compute_dtype=torch.float32, keep_f32_params: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, tlc: TLC = None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -109,18 +123,18 @@ class HFRM(nn.Module):
         chan = dim
         for num in enc_blk_nums:
             self.encoders.append(
-                nn.Sequential(*[HFRMBlock(chan) for _ in range(num)]))
+                nn.Sequential(*[HFRMBlock(chan, tlc) for _ in range(num)]))
             self.downs.append(Conv2d(chan, chan * 2, 2, stride=2))
             chan *= 2
         self.mid_blks = nn.Sequential(
-            *[HFRMBlock(chan) for _ in range(mid_blk_num)])
+            *[HFRMBlock(chan, tlc) for _ in range(mid_blk_num)])
         self.ups, self.decoders = nn.ModuleList(), nn.ModuleList()
         for num in dec_blk_nums:
             self.ups.append(nn.Sequential(
                 Conv2d(chan, chan * 2, 1, bias=False), nn.PixelShuffle(2)))
             chan //= 2
             self.decoders.append(
-                nn.Sequential(*[HFRMBlock(chan) for _ in range(num)]))
+                nn.Sequential(*[HFRMBlock(chan, tlc) for _ in range(num)]))
         self.conv_out = Conv2d(dim, in_channel, 3, padding=1)
         cast_compute(self, compute_dtype, store=not keep_f32_params)
 

@@ -13,8 +13,19 @@ float32 and casts conv and linear weights at each use, as the JAX model's
 flax ``dtype=`` does; without it (serving) they are stored in the compute
 dtype.  ``fused_block`` runs every ResnetBlock GN -> swish -> conv3x3 pair
 through the fused kernel; attention and ``norm_out`` keep the plain
-GroupNorm, as in JAX.  The ``use_window`` and ``wavelet_in_unet`` hooks of
-the JAX model are not ported yet and raise.
+GroupNorm, as in JAX.
+
+Two hooks of the JAX model wrap the network, each splitting its input at
+a hard-coded 3 channels (the cond pixels, then the rest) as JAX does,
+also where ``use_fft`` makes the conditioning 9 channels wide:
+``use_window`` cuts each half into a window_size² grid of tiles stacked as
+channels (:func:`space_to_depth`, undone on exit); ``wavelet_in_unet``
+takes the Haar DWT of each half in float32 before the cast to the compute
+dtype (one DWT kernel launch a half on the card, each reading its channel
+slice in place) and the IWT of the float32 output.  Flax infers
+``conv_in``'s width from its input; here :func:`conv_in_channels` computes
+it.  Attention stays keyed to the configured ``resolution``'s halving
+chain, not to the size the UNet works at, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,10 +47,39 @@ from wavedm_tpu_torch.models.layers import (
     cast_compute,
     get_timestep_embedding,
 )
+from wavedm_tpu_torch.ops.wavelet import wavelet_rec
+from wavedm_tpu_torch.ops.wavelet_cuda import wavelet_dec_cat
 
-__all__ = ["TimestepMLP", "DiffusionUNet"]
+__all__ = ["space_to_depth", "depth_to_space", "conv_in_channels",
+           "TimestepMLP", "DiffusionUNet"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def space_to_depth(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C*p*p, H/p, W/p), the reference's TILE
+    decomposition: a p x p grid of contiguous (H/p, W/p) tiles stacked as
+    channels, channel c*p*p + tile_row*p + tile_col.  Not
+    ``F.pixel_unshuffle``, which interleaves pixel windows."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, p, h // p, p, w // p).permute(0, 1, 2, 4, 3, 5)
+    return x.reshape(b, c * p * p, h // p, w // p)
+
+
+def depth_to_space(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth`."""
+    b, cpp, h, w = x.shape
+    x = x.reshape(b, cpp // (p * p), p, p, h, w).permute(0, 1, 2, 4, 3, 5)
+    return x.reshape(b, cpp // (p * p), h * p, w * p)
+
+
+def conv_in_channels(cfg: Config) -> int:
+    """``conv_in``'s input width: the UNet's input channels, times
+    window_size² under ``use_window`` and 16 under ``wavelet_in_unet``."""
+    n = cfg.model.unet_in_channels
+    if cfg.data.use_window:
+        n *= cfg.data.window_size ** 2
+    return n * (16 if cfg.data.wavelet_in_unet else 1)
 
 
 class TimestepMLP(nn.Module):
@@ -66,14 +106,12 @@ class DiffusionUNet(nn.Module):
                  dropout: float = 0.0, resamp_with_conv: bool = True,
                  resolution: int = 64, compute_dtype=torch.float32,
                  fused_gn: bool = False, use_window: bool = False,
-                 wavelet_in_unet: bool = False, fused_block: bool = False,
-                 keep_f32_params: bool = False):
+                 window_size: int = 2, wavelet_in_unet: bool = False,
+                 fused_block: bool = False, keep_f32_params: bool = False):
+        """``in_channels``: ``conv_in``'s width, after the hooks."""
         super().__init__()
-        for name, value in (("use_window", use_window),
-                            ("wavelet_in_unet", wavelet_in_unet)):
-            if value:
-                raise NotImplementedError(
-                    f"DiffusionUNet: {name} is not ported yet")
+        self.use_window, self.window_size = use_window, window_size
+        self.wavelet_in_unet = wavelet_in_unet
         self.ch, self.num_levels = ch, len(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.compute_dtype = compute_dtype
@@ -141,7 +179,7 @@ class DiffusionUNet(nn.Module):
     @classmethod
     def from_config(cls, cfg: Config, **overrides) -> "DiffusionUNet":
         kw = dict(
-            in_channels=cfg.model.unet_in_channels,
+            in_channels=conv_in_channels(cfg),
             out_ch=cfg.model.out_ch,
             ch=cfg.model.ch,
             ch_mult=tuple(cfg.model.ch_mult),
@@ -153,6 +191,7 @@ class DiffusionUNet(nn.Module):
             compute_dtype=_DTYPES[cfg.parallel.compute_dtype],
             fused_gn=cfg.parallel.fused_groupnorm,
             use_window=cfg.data.use_window,
+            window_size=cfg.data.window_size,
             wavelet_in_unet=cfg.data.wavelet_in_unet,
             fused_block=cfg.parallel.fused_resblock,
         )
@@ -160,7 +199,14 @@ class DiffusionUNet(nn.Module):
         return cls(**kw)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """x: (N, Cin, H, W), t: (N,) -> (N, out_ch, H, W) float32."""
+        """x: (N, Cin, H, W), t: (N,) -> (N, out_ch, H, W) float32 (the
+        hooks change both channel counts and sizes, as JAX's do)."""
+        if self.use_window:
+            p = self.window_size
+            x = torch.cat([space_to_depth(x[:, :3], p),
+                           space_to_depth(x[:, 3:], p)], dim=1)
+        if self.wavelet_in_unet:
+            x = wavelet_dec_cat([x[:, :3], x[:, 3:]])
         div = 2 ** (self.num_levels - 1)
         if x.shape[2] % div or x.shape[3] % div:
             raise ValueError(f"input dims {tuple(x.shape[2:])} must be "
@@ -192,5 +238,9 @@ class DiffusionUNet(nn.Module):
                 h = level.upsample(h)
         assert not hs
 
-        h = self.conv_out(self.norm_out(h))
-        return h.float()
+        h = self.conv_out(self.norm_out(h)).float()
+        if self.use_window:
+            h = depth_to_space(h, self.window_size)
+        if self.wavelet_in_unet:
+            h = wavelet_rec(h)
+        return h

@@ -35,11 +35,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 300
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points of csrc/*.cu: name -> argtypes (all return cudaError_t)
 ENTRIES = {
-    "wavelet_dec_f32": (_P, _P, _I, _I, _I, _I, _P),
-    "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _P),
+    "wavelet_dec_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
+    "wavelet_rec_f32": (_P, _P, _I, _I, _I, _I, _L, _L, _P),
     "group_norm_f32": (_P,) * 4 + (_I,) * 4 + (_F,) + (_I,) * 5 + (_P,),
     "group_norm_bf16": (_P,) * 4 + (_I,) * 4 + (_F,) + (_I,) * 5 + (_P,),
     "fused_gn_swish_conv_f32": (_P,) * 8 + (_I,) * 8 + (_F, _P),

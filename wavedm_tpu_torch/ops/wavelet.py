@@ -14,8 +14,9 @@ The filter bank is the kron recursion
 whose entries are +-2**-s, exact in float32.
 
 At scale 2 the transform goes through the wrapper of ``ops/wavelet_cuda.py``,
-which launches the hand-written CUDA kernel on a CUDA tensor and runs the
-plain composition below on a CPU tensor; scales 1 and 3 are always plain.
+which launches the hand-written CUDA kernel on a CUDA tensor (with its own
+gradient under autograd) and runs the plain composition below on a CPU
+tensor; scales 1 and 3 are always plain.
 """
 
 from __future__ import annotations
@@ -137,8 +138,9 @@ def wavelet_dec(x: torch.Tensor, scale: int = 2,
     channel axis last."""
     xc = _nchw(x, layout)
     if scale == 2:
-        from wavedm_tpu_torch.ops.wavelet_cuda import wavelet_dec_cuda
-        return _from_nchw(wavelet_dec_cuda(xc.contiguous()), layout)
+        from wavedm_tpu_torch.ops.wavelet_cuda import (kernel_layout,
+                                                       wavelet_dec_cuda)
+        return _from_nchw(wavelet_dec_cuda(kernel_layout(xc)), layout)
     return _from_nchw(wavelet_dec_plain(xc, scale), layout)
 
 
@@ -148,6 +150,7 @@ def wavelet_rec(z: torch.Tensor, scale: int = 2,
     :func:`wavelet_dec`)."""
     zc = _nchw(z, layout)
     if scale == 2:
-        from wavedm_tpu_torch.ops.wavelet_cuda import wavelet_rec_cuda
-        return _from_nchw(wavelet_rec_cuda(zc.contiguous()), layout)
+        from wavedm_tpu_torch.ops.wavelet_cuda import (kernel_layout,
+                                                       wavelet_rec_cuda)
+        return _from_nchw(wavelet_rec_cuda(kernel_layout(zc, False)), layout)
     return _from_nchw(wavelet_rec_plain(zc, scale), layout)

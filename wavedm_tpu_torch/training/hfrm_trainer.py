@@ -8,8 +8,20 @@ lr * 0.5**(step / 1e5), the first update at the base rate; the loss
 0); per-image PSNR on clipped outputs; a ``best`` checkpoint when an
 epoch's mean PSNR beats the running best (from ``hfrm.best_psnr_init``)
 and ``lastest`` (the reference's spelling) every 5th epoch, at the last
-epoch and at ``max_steps``.  The perceptual and GAN terms need the VGG and
-PatchGAN models, which are not ported (ROADMAP item 16).
+epoch and at ``max_steps``.
+
+Two opt-in terms, dead in the reference, run as JAX runs them:
+
+- ``hfrm.use_perceptual``: + :func:`perceptual_loss` of frozen VGG19
+  features of ``fake * 255`` and ``gt * 255`` (torchvision weights from
+  ``hfrm.vgg_ckpt``, else random ones drawn from seed 0);
+- ``hfrm.use_gan``: + ``lambda_gan * mean((D(cond, fake) - 1)**2)`` (LSGAN)
+  with the PatchGAN ``Discriminator`` (random weights from
+  ``training.seed + 1``), which then takes its own step on the detached
+  ``fake``: Adam(``hfrm.lr``, betas (0.5, 0.999)) on
+  0.5 * (mean((D(cond, gt) - 1)**2) + mean(D(cond, fake)**2)).  Its
+  weights, moments and step are saved beside the generator's and restored
+  on resume.
 """
 
 from __future__ import annotations
@@ -21,8 +33,11 @@ import numpy as np
 import torch
 
 from wavedm_tpu_torch.config import Config
-from wavedm_tpu_torch.inference.loader import resolve_device
+from wavedm_tpu_torch.inference.loader import init_random_, resolve_device
 from wavedm_tpu_torch.models.hfrm import HFRM, identity_center_init_
+from wavedm_tpu_torch.models.vgg_loss import (VGG19Features, perceptual_loss,
+                                              vgg19_features_state_dict)
+from wavedm_tpu_torch.models.wdnet import Discriminator
 from wavedm_tpu_torch.training.state import TrainState
 from wavedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from wavedm_tpu_torch.utils.profiling import MetricsLogger, StepTimer
@@ -49,10 +64,20 @@ def hfrm_lr(base_lr: float, step: int) -> float:
 
 
 def make_hfrm_optimizer(cfg: Config, params) -> torch.optim.Adam:
-    """Adam(betas (0.5, 0.999), eps 1e-8) at ``hfrm.lr`` (each update sets
-    its own rate, :func:`hfrm_lr`)."""
+    """Adam(betas (0.5, 0.999), eps 1e-8) at ``hfrm.lr`` (each generator
+    update sets its own rate, :func:`hfrm_lr`; the discriminator's stays
+    at ``hfrm.lr``)."""
     return torch.optim.Adam(params, lr=cfg.hfrm.lr, betas=(0.5, 0.999),
                             eps=1e-8)
+
+
+def _random_module(module: torch.nn.Module, device: torch.device,
+                   seed: int) -> torch.nn.Module:
+    with torch.device("meta"):
+        module = module()
+    module = module.to_empty(device=device)
+    return init_random_(module, torch.Generator(device=device)
+                        .manual_seed(seed))
 
 
 def image_psnr(fake: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -69,11 +94,6 @@ class HFRMTrainer:
 
     def __init__(self, cfg: Config, device=None,
                  log_fn: Callable[[str], None] = print):
-        for name in ("use_perceptual", "use_gan"):
-            if getattr(cfg.hfrm, name):
-                raise NotImplementedError(
-                    f"hfrm.{name}: the VGG and PatchGAN models it needs are "
-                    "not ported (ROADMAP item 16)")
         self.cfg = cfg
         self.log = log_fn
         self.device = resolve_device(device)
@@ -92,35 +112,86 @@ class HFRMTrainer:
         self.best_psnr = cfg.hfrm.best_psnr_init
         self.epoch = 0
 
+        h = cfg.hfrm
+        self.vgg = None
+        if h.use_perceptual:
+            if h.vgg_ckpt:
+                with torch.device("meta"):
+                    vgg = VGG19Features()
+                vgg = vgg.to_empty(device=self.device)
+                vgg.load_state_dict(vgg19_features_state_dict(torch.load(
+                    h.vgg_ckpt, map_location="cpu", weights_only=True)))
+            else:
+                self.log("hfrm.use_perceptual without vgg_ckpt: random VGG "
+                         "features")
+                vgg = _random_module(VGG19Features, self.device, 0)
+            self.vgg = vgg.eval().requires_grad_(False)
+        # the discriminator's TrainState (its generator unused), and the
+        # loss of its last step
+        self.disc_state = self.d_loss = None
+        if h.use_gan:
+            disc = _random_module(Discriminator, self.device,
+                                  cfg.training.seed + 1).train()
+            self.disc_state = TrainState(
+                model=disc,
+                optimizer=make_hfrm_optimizer(cfg, disc.parameters()),
+                ema={}, step=0, generator=torch.Generator(
+                    device=self.device).manual_seed(cfg.training.seed + 1))
+
     def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One update on ``batch`` (array or tensor); returns the loss and
-        the batch-mean PSNR as device scalars."""
+        """One update on ``batch`` (array or tensor), and one of the
+        discriminator with ``use_gan`` (its loss in ``d_loss``); returns
+        the generator's loss and the batch-mean PSNR as device scalars."""
+        h = self.cfg.hfrm
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         x = x.permute(0, 3, 1, 2)
         cond, gt = x[:, :3].contiguous(), x[:, 3:].contiguous()
         opt = self.state.optimizer
         for group in opt.param_groups:
-            group["lr"] = hfrm_lr(self.cfg.hfrm.lr, self.state.step)
+            group["lr"] = hfrm_lr(h.lr, self.state.step)
         opt.zero_grad(set_to_none=True)
         fake = self.model(cond)
         loss = 2.0 * torch.mean(torch.abs(fake * 255.0 - gt * 255.0))
-        if self.cfg.hfrm.tv_weight > 0.0:
-            loss = loss + tv_loss(fake, self.cfg.hfrm.tv_weight)
+        if self.vgg is not None:
+            with torch.no_grad():
+                real_feats = self.vgg(gt * 255.0)
+            loss = loss + perceptual_loss(self.vgg(fake * 255.0), real_feats)
+        if h.tv_weight > 0.0:
+            loss = loss + tv_loss(fake, h.tv_weight)
+        disc = self.disc_state.model if self.disc_state else None
+        if disc is not None:
+            disc.requires_grad_(False)
+            loss = loss + h.lambda_gan * torch.mean(
+                torch.square(disc(cond, fake) - 1.0))
+            disc.requires_grad_(True)
         loss.backward()
         opt.step()
         self.state.step += 1
-        return loss.detach(), image_psnr(fake.detach(), gt).mean()
+        fake = fake.detach()
+        if disc is not None:
+            d_opt = self.disc_state.optimizer
+            d_opt.zero_grad(set_to_none=True)
+            d_loss = 0.5 * (torch.mean(torch.square(disc(cond, gt) - 1.0))
+                            + torch.mean(torch.square(disc(cond, fake))))
+            d_loss.backward()
+            d_opt.step()
+            self.disc_state.step += 1
+            self.d_loss = d_loss.detach()
+        return loss.detach(), image_psnr(fake, gt).mean()
 
     # ------------------------------------------------------------------ ckpt
 
     def save(self, ckpt_dir: str, name: str) -> str:
-        """Write ``<ckpt_dir>/<name>.pth.tar``; returns its path."""
+        """Write ``<ckpt_dir>/<name>.pth.tar`` (the discriminator's state
+        with it); returns its path."""
         return save_checkpoint(os.path.join(ckpt_dir, name), self.state,
                                self.cfg, epoch=self.epoch,
-                               extra={"best_psnr": float(self.best_psnr)})
+                               extra={"best_psnr": float(self.best_psnr)},
+                               disc_state=self.disc_state)
 
     def resume(self, path: str) -> None:
-        meta = load_checkpoint(path, self.state, self.cfg)
+        meta = load_checkpoint(path, self.state, self.cfg,
+                               disc_state=self.disc_state)
         self.epoch = int(meta["epoch"])
         self.best_psnr = float(meta.get("best_psnr",
                                         self.cfg.hfrm.best_psnr_init))
@@ -157,10 +228,12 @@ class HFRMTrainer:
                 history.append((step, float(loss), float(psnr)))
                 epoch_psnr.append(history[-1][2])
                 if step % 100 == 0:
+                    d_note = ("" if self.d_loss is None
+                              else f" D loss: {float(self.d_loss):.4f}")
                     self.log(f"[Epoch {epoch}] step {step} G loss: "
                              f"{history[-1][1]:.4f} PSNR: "
                              f"{history[-1][2]:.3f} step time: "
-                             f"{timer.mean:.3f}s")
+                             f"{timer.mean:.3f}s" + d_note)
                     if mlog is not None:
                         mlog.log(step, loss=history[-1][1],
                                  psnr=history[-1][2], step_time=timer.mean)

@@ -8,7 +8,9 @@ layout) and run as NCHW inside.  The domains:
 
 - wavelet: the 2-level Haar packet of cond and target, with the HF
   conditioning from the ground truth or the frozen HFRM;
-- pixel (``data.wavelet: false``): the [-1,1] pixels as they are;
+- pixel (``data.wavelet: false``, and ``data.wavelet_in_unet``, whose
+  UNet takes the DWT itself): the [-1,1] pixels as they are, with
+  ``data.use_fft`` the cond pixels' FFT amplitude and phase appended;
 - global (``data.global_attn``, on either): the batch is (crops, totals),
   one 720x480 whole image per B images of crops, which the UNet's global
   branch takes in [-1,1] (wavelet-decomposed on the wavelet path);
@@ -19,8 +21,7 @@ layout) and run as NCHW inside.  The domains:
 
 As in JAX, the reported loss per pixel divides by ``pred_channels *
 image_size**2`` on every domain, on the Laplacian one too, where the loss
-lives on a level 4x smaller on each side.  ``use_fft``, ``use_window`` and
-``wavelet_in_unet`` are not ported yet (ROADMAP item 15).
+lives on a level 4x smaller on each side.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.diffusion.ema import ema_update
 from wavedm_tpu_torch.diffusion.loss import (antithetic_timesteps,
                                              noise_estimation_loss)
+from wavedm_tpu_torch.diffusion.sampling import fft_condition
 from wavedm_tpu_torch.diffusion.schedules import get_beta_schedule
 from wavedm_tpu_torch.inference.restoration import (data_transform,
                                                     inverse_data_transform)
@@ -43,24 +45,19 @@ from wavedm_tpu_torch.training.state import TrainState
 
 __all__ = ["data_transform", "inverse_data_transform", "prepare_pixel_batch",
            "prepare_wavelet_batch", "prepare_global_batch", "StepMetrics",
-           "check_domain", "make_train_step"]
-
-
-def check_domain(cfg: Config) -> None:
-    """Raise for the switches whose training the port does not have yet."""
-    d = cfg.data
-    for name, value in (("use_fft", d.use_fft), ("use_window", d.use_window),
-                        ("wavelet_in_unet", d.wavelet_in_unet)):
-        if value:
-            raise NotImplementedError(
-                f"{name} training is not ported yet (ROADMAP item 15)")
+           "make_train_step"]
 
 
 def prepare_pixel_batch(x: torch.Tensor, cfg: Config) -> torch.Tensor:
     """(B, P, P, 6) [cond | gt] pixels in [0,1] -> (B, 6, P, P) NCHW
     training tensor in [-1,1], contiguous (the fused kernel takes no
-    channels-last strides)."""
-    return data_transform(x.permute(0, 3, 1, 2).contiguous())
+    channels-last strides); with ``data.use_fft`` (B, 12, P, P), the cond
+    channels tripled to [cond | FFT amp | FFT phase]."""
+    x = data_transform(x.permute(0, 3, 1, 2).contiguous())
+    if cfg.data.use_fft:
+        c = cfg.data.channels
+        return torch.cat([fft_condition(x[:, :c]), x[:, c:]], dim=1)
+    return x
 
 
 def prepare_wavelet_batch(x: torch.Tensor, cfg: Config,
@@ -93,7 +90,7 @@ def prepare_global_batch(total: torch.Tensor, cfg: Config) -> torch.Tensor:
     """(Bg, H, W, 3) whole images in [0,1] -> the global UNet's (Bg, C, ., .)
     NCHW input: [-1,1] pixels, wavelet-decomposed on the wavelet path."""
     t = data_transform(total.permute(0, 3, 1, 2))
-    if cfg.data.wavelet:
+    if cfg.data.wavelet_domain:
         t = wavelet_dec(t)
     return t
 
@@ -121,7 +118,6 @@ def make_train_step(cfg: Config, model: nn.Module,
     not given.  ``training.grad_accum`` > 1 splits the batch into that many
     micro-batches and averages their gradients into one update (not on the
     global and Laplacian domains, as in JAX)."""
-    check_domain(cfg)
     m, d = cfg.model, cfg.data
     device = next(model.parameters()).device
     betas = torch.as_tensor(get_beta_schedule(
@@ -132,7 +128,10 @@ def make_train_step(cfg: Config, model: nn.Module,
     ), dtype=torch.float32, device=device)
     num_timesteps = cfg.diffusion.num_diffusion_timesteps
     num_of_pixel = m.pred_channels * d.image_size ** 2
-    inp_channels = m.in_channels if d.wavelet else d.channels
+    # JAX's arithmetic: under wavelet_in_unet the pixel batch's cond is
+    # model.in_channels wide as well
+    inp_channels = (m.in_channels if d.wavelet
+                    else d.channels * (3 if d.use_fft else 1))
     accum = cfg.training.grad_accum
     if accum > 1 and (d.global_attn or d.lap):
         raise ValueError("training.grad_accum > 1 is not supported with "
@@ -229,7 +228,7 @@ def make_train_step(cfg: Config, model: nn.Module,
                 torch.as_tensor(total, dtype=torch.float32, device=device),
                 cfg)
         x = torch.as_tensor(batch, dtype=torch.float32, device=device)
-        x = (prepare_wavelet_batch(x, cfg, hfrm) if d.wavelet
+        x = (prepare_wavelet_batch(x, cfg, hfrm) if d.wavelet_domain
              else prepare_pixel_batch(x, cfg))
         return diffusion_update(state, x, x_global, t, e, torch.zeros(()))
 

@@ -27,7 +27,7 @@ from wavedm_tpu_torch.inference.loader import (Weights, build_hfrm,
                                                build_unet, resolve_device)
 from wavedm_tpu_torch.training.lap import create_lap_state, lap_lr_for_epoch
 from wavedm_tpu_torch.training.state import TrainState, create_train_state
-from wavedm_tpu_torch.training.train_step import check_domain, make_train_step
+from wavedm_tpu_torch.training.train_step import make_train_step
 from wavedm_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                prune_checkpoints,
                                                save_checkpoint)
@@ -58,7 +58,6 @@ class DiffusionTrainer:
 
     def __init__(self, cfg: Config, hfrm_state_dict: Weights = None,
                  device=None, log_fn: Callable[[str], None] = print):
-        check_domain(cfg)
         self.cfg = cfg
         self.log = log_fn
         self.device = resolve_device(device)
@@ -73,7 +72,7 @@ class DiffusionTrainer:
             self.lap_state = create_lap_state(torch.Generator(
                 device=self.device).manual_seed(cfg.training.seed + 2))
         self.hfrm = None
-        if (cfg.data.wavelet and cfg.model.use_other_channels
+        if (cfg.data.wavelet_domain and cfg.model.use_other_channels
                 and not cfg.model.use_gt_in_train):
             if hfrm_state_dict is None:
                 raise ValueError(

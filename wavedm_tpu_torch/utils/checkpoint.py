@@ -10,7 +10,9 @@ adds scalars of its own through ``extra`` (the stage-1 trainer: its
 ``best_psnr``; it keeps no EMA, so its ``ema_helper`` is empty), and
 ``build_hfrm`` loads a stage-1 file's ``state_dict`` as it is.  A
 Laplacian-path run also stores its translator under ``lap``: its
-``state_dict`` and its Adam's ``optimizer`` state.  The JAX
+``state_dict`` and its Adam's ``optimizer`` state; a stage-1 run with
+``hfrm.use_gan`` stores its discriminator under ``disc``: its
+``state_dict``, ``optimizer`` state and ``step``.  The JAX
 package's Orbax checkpoints become such files through
 ``utils/orbax_convert.py``, which writes a seed (``training.seed``) in
 place of the generator's state; :func:`load_checkpoint` seeds the
@@ -35,20 +37,27 @@ __all__ = ["SUFFIX", "save_checkpoint", "write_checkpoint", "load_checkpoint",
 SUFFIX = ".pth.tar"
 
 
-_TENSORS = ("state_dict", "optimizer", "ema_helper", "generator", "lap")
+_TENSORS = ("state_dict", "optimizer", "ema_helper", "generator", "lap",
+            "disc")
 
 
 def save_checkpoint(path: str, state: TrainState, cfg: Config,
                     epoch: int = 0, extra: Optional[Dict] = None,
-                    lap_state=None) -> str:
-    """Write ``state``, the ``extra`` scalars and the Laplacian path's
-    translator ``lap_state`` (a ``training.lap.LapState``) to ``path``
-    (``SUFFIX`` appended if missing) through a temporary file, so a cut
-    write leaves no partial checkpoint."""
+                    lap_state=None, disc_state: Optional[TrainState] = None
+                    ) -> str:
+    """Write ``state``, the ``extra`` scalars, the Laplacian path's
+    translator ``lap_state`` (a ``training.lap.LapState``) and stage 1's
+    discriminator ``disc_state`` to ``path`` (``SUFFIX`` appended if
+    missing) through a temporary file, so a cut write leaves no partial
+    checkpoint."""
+    extra = dict(extra or {})
     if lap_state is not None:
-        extra = dict(extra or {}, lap={
-            "state_dict": lap_state.model.state_dict(),
-            "optimizer": lap_state.optimizer.state_dict()})
+        extra["lap"] = {"state_dict": lap_state.model.state_dict(),
+                        "optimizer": lap_state.optimizer.state_dict()}
+    if disc_state is not None:
+        extra["disc"] = {"state_dict": disc_state.model.state_dict(),
+                         "optimizer": disc_state.optimizer.state_dict(),
+                         "step": int(disc_state.step)}
     return write_checkpoint(
         path, cfg, state_dict=state.model.state_dict(),
         optimizer=state.optimizer.state_dict(), ema_helper=state.ema,
@@ -83,10 +92,12 @@ def write_checkpoint(path: str, cfg: Config, *, state_dict: Dict,
 
 
 def load_checkpoint(path: str, state: TrainState, cfg: Config,
-                    lap_state=None) -> Dict:
-    """Restore ``state`` in place from ``path``, and ``lap_state`` where the
-    file holds a translator (a file without one leaves ``lap_state`` as it
-    is, as the JAX loader starts a missing translator fresh); returns the
+                    lap_state=None, disc_state: Optional[TrainState] = None
+                    ) -> Dict:
+    """Restore ``state`` in place from ``path``, and ``lap_state`` and
+    ``disc_state`` where the file holds a translator or a discriminator (a
+    file without one leaves them as they are, as the JAX loader starts a
+    missing one fresh); returns the
     file's metadata (``step``, ``epoch``, ``pred_type``, ``config`` and the
     ``extra`` scalars it was saved with)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
@@ -103,6 +114,10 @@ def load_checkpoint(path: str, state: TrainState, cfg: Config,
     if lap_state is not None and "lap" in obj:
         lap_state.model.load_state_dict(obj["lap"]["state_dict"])
         lap_state.optimizer.load_state_dict(obj["lap"]["optimizer"])
+    if disc_state is not None and "disc" in obj:
+        disc_state.model.load_state_dict(obj["disc"]["state_dict"])
+        disc_state.optimizer.load_state_dict(obj["disc"]["optimizer"])
+        disc_state.step = int(obj["disc"]["step"])
     state.step = int(obj["step"])
     if isinstance(obj["generator"], int):      # a converted Orbax checkpoint
         state.generator.manual_seed(obj["generator"])

@@ -19,7 +19,10 @@ import torch
 
 __all__ = ["unet_state_dict_from_flax", "unet_global_state_dict_from_flax",
            "lap_state_dict_from_flax", "hfrm_state_dict_from_flax",
-           "load_torch_checkpoint"]
+           "wdnet_state_dict_from_flax", "rrdb_state_dict_from_flax",
+           "sam_state_dict_from_flax",
+           "discriminator_state_dict_from_flax",
+           "vgg19_state_dict_from_flax", "load_torch_checkpoint"]
 
 
 def _t(a) -> torch.Tensor:
@@ -181,6 +184,90 @@ def hfrm_state_dict_from_flax(params: Mapping, enc_blk_nums, mid_blk_num: int,
         for bi in range(num):
             _hfrm_block(sd, f"decoders.{li}.{bi}", params[f"dec_{li}_{bi}"])
     _conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def _rdb(sd: Dict, key: str, p: Mapping) -> None:
+    for k in range(1, 6):
+        _conv(sd, f"{key}.conv{k}.0", p[f"conv{k}"])
+
+
+def wdnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``WDNet`` params -> the port's (and the reference's) ``WDNet``
+    state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "xbranch.0.0", params["xbranch"])
+    _conv(sd, "cascade1.0", params["cascade1_conv1"])
+    _conv(sd, "cascade1.2", params["cascade1_conv2"])
+    i = 0
+    while f"dmdb_{i}" in params:
+        p, key = params[f"dmdb_{i}"], f"cascade2.{i}"
+        _rdb(sd, f"{key}.RDB1", p["rdb1"])
+        _rdb(sd, f"{key}.RDB2", p["rdb2"])
+        _conv(sd, f"{key}.deli.0", p["deli"])
+        _conv(sd, f"{key}.deli2.0", p["deli2"])
+        i += 1
+    _conv(sd, "final.0.0", params["final"])
+    return sd
+
+
+def sam_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SAM`` params -> the port's (and the reference's) ``SAM``
+    state_dict.  JAX builds no ``conv_in``, which the reference never
+    applies: it comes out zero."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2", "conv3", "conv_out"):
+        _conv(sd, name, params[name])
+    k = np.asarray(params["conv1"]["kernel"])
+    sd["conv_in.weight"] = torch.zeros(k.shape[3], k.shape[2], 3, 3)
+    for name in ("irnn1", "irnn2"):
+        for wname, w in params[name].items():
+            sd[f"{name}.{wname}"] = _t(w).reshape(())
+    if "attention_layer" in params:
+        a = params["attention_layer"]
+        _conv(sd, "attention_layer.conv3", a["conv3"])
+        _conv(sd, "attention_layer.ca.fc1", a["ca"]["fc1"])
+        _conv(sd, "attention_layer.ca.fc2", a["ca"]["fc2"])
+        _conv(sd, "attention_layer.sa.conv1", a["sa"]["conv1"])
+    return sd
+
+
+def rrdb_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``RRDB`` params -> the port's ``RRDB`` state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        _rdb(sd, f"RDB{i}", params[f"rdb{i}"])
+    _conv(sd, "deli.0", params["deli"])
+    for k, v in sam_state_dict_from_flax(params["sam1"]).items():
+        sd[f"sam1.{k}"] = v
+    return sd
+
+
+def discriminator_state_dict_from_flax(params: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``Discriminator`` params -> the port's PatchGAN
+    ``Discriminator`` (``model.{0,2,5,8,12}``) state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 2, 5, 8)):
+        _conv(sd, f"model.{idx}", params[f"block_{i}_conv"])
+    _conv(sd, "model.12", params["conv_out"])
+    return sd
+
+
+# torchvision features index of each conv of VGG19, up to conv5_2
+_VGG_CONVS = (("conv1_1", 0), ("conv1_2", 2), ("conv2_1", 5), ("conv2_2", 7),
+              ("conv3_1", 10), ("conv3_2", 12), ("conv3_3", 14),
+              ("conv3_4", 16), ("conv4_1", 19), ("conv4_2", 21),
+              ("conv4_3", 23), ("conv4_4", 25), ("conv5_1", 28),
+              ("conv5_2", 30))
+
+
+def vgg19_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``VGG19Features`` params -> the port's ``VGG19Features``
+    (torchvision's ``features.{i}``) state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, idx in _VGG_CONVS:
+        _conv(sd, f"features.{idx}", params[name])
     return sd
 
 

@@ -20,6 +20,10 @@ which ``build_restorer``, ``build_hfrm``, ``DiffusionTrainer.resume`` and
   the extra tree ``lap``): its params through
   ``lap_state_dict_from_flax`` and its Adam moments the same way, under
   the file's ``lap`` entry that ``DiffusionTrainer.resume`` reads.
+- stage 1's discriminator (``hfrm.use_gan``; the extra tree ``disc``): its
+  params through ``discriminator_state_dict_from_flax``, its Adam moments
+  the same way and its step, under the file's ``disc`` entry that
+  ``HFRMTrainer.resume`` reads.
 - optimizer: each moment tree goes through the same layout transform as
   the weights into the torch optimizer's ``state_dict``, indexed in
   ``named_parameters()`` order, with the config's hyperparameters:
@@ -52,11 +56,13 @@ from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.models.hfrm import HFRM
 from wavedm_tpu_torch.models.unet import DiffusionUNet
 from wavedm_tpu_torch.models.unet_global import DiffusionUNetGlobal
+from wavedm_tpu_torch.models.wdnet import Discriminator
 from wavedm_tpu_torch.training.hfrm_trainer import make_hfrm_optimizer
 from wavedm_tpu_torch.training.lap import make_lap_model, make_lap_optimizer
 from wavedm_tpu_torch.training.state import make_optimizer
 from wavedm_tpu_torch.utils.checkpoint import write_checkpoint
-from wavedm_tpu_torch.utils.convert import (hfrm_state_dict_from_flax,
+from wavedm_tpu_torch.utils.convert import (discriminator_state_dict_from_flax,
+                                            hfrm_state_dict_from_flax,
                                             lap_state_dict_from_flax,
                                             unet_global_state_dict_from_flax,
                                             unet_state_dict_from_flax)
@@ -166,25 +172,43 @@ def _torch_optimizer_state(moments: Dict, model: torch.nn.Module,
             "param_groups": optimizer.state_dict()["param_groups"]}
 
 
+def _aux_entry(tree: Mapping, model: torch.nn.Module, to_sd: Callable,
+               make_opt: Callable, what: str) -> Dict:
+    """An extra JAX state tree (``params``, Adam ``opt_state``) of the
+    model ``model`` -> the file's entry for it: its ``state_dict`` and
+    torch optimizer state."""
+    sd = to_sd(tree["params"])
+    want = model.state_dict()
+    if set(sd) != set(want) or any(sd[k].shape != want[k].shape
+                                   for k in sd):
+        raise ValueError(f"the {what}'s parameters do not fit its model")
+    s = _moments(tree["opt_state"])
+    if "mu" not in s or "nu_max" in s:
+        raise ValueError(f"the {what}'s optimizer state is not Adam")
+    moments = {"exp_avg": to_sd(s["mu"]), "exp_avg_sq": to_sd(s["nu"]),
+               "step": float(s["count"])}
+    optimizer = make_opt(list(model.parameters()))
+    return {"state_dict": sd,
+            "optimizer": _torch_optimizer_state(moments, model, optimizer)}
+
+
 def _lap_entry(lap_tree: Mapping) -> Dict:
     """The JAX ``LapState`` tree -> the file's ``lap`` entry."""
     with torch.device("meta"):
         model = make_lap_model()
-    sd = lap_state_dict_from_flax(lap_tree["params"])
-    want = model.state_dict()
-    if set(sd) != set(want) or any(sd[k].shape != want[k].shape
-                                   for k in sd):
-        raise ValueError("the lap translator's parameters do not fit "
-                         "LapHighTrans")
-    s = _moments(lap_tree["opt_state"])
-    if "mu" not in s or "nu_max" in s:
-        raise ValueError("the lap translator's optimizer state is not Adam")
-    moments = {"exp_avg": lap_state_dict_from_flax(s["mu"]),
-               "exp_avg_sq": lap_state_dict_from_flax(s["nu"]),
-               "step": float(s["count"])}
-    optimizer = make_lap_optimizer(list(model.parameters()))
-    return {"state_dict": sd,
-            "optimizer": _torch_optimizer_state(moments, model, optimizer)}
+    return _aux_entry(lap_tree, model, lap_state_dict_from_flax,
+                      make_lap_optimizer, "lap translator")
+
+
+def _disc_entry(disc_tree: Mapping, cfg: Config) -> Dict:
+    """The JAX discriminator's ``TrainState`` tree -> the file's ``disc``
+    entry."""
+    with torch.device("meta"):
+        model = Discriminator()
+    entry = _aux_entry(disc_tree, model, discriminator_state_dict_from_flax,
+                       lambda params: make_hfrm_optimizer(cfg, params),
+                       "discriminator")
+    return dict(entry, step=int(disc_tree["step"]))
 
 
 def _optimizer_state(opt_state, kind: str, cfg: Config, step: int,
@@ -253,6 +277,10 @@ def convert_orbax_checkpoint(src: str, dst: str, cfg: Config) -> Dict:
     extra = {k: v for k, v in meta.items() if k != "epoch"}
     if "lap" in tree:
         extra["lap"] = _lap_entry(tree["lap"])
+    if "disc" in tree:
+        if kind != "hfrm":
+            raise ValueError(f"{src}: a discriminator beside a {kind}")
+        extra["disc"] = _disc_entry(tree["disc"], cfg)
     path = write_checkpoint(dst, cfg, state_dict=sd, optimizer=opt_sd,
                             ema_helper=ema, step=step,
                             generator=int(cfg.training.seed),
