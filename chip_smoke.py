@@ -18,10 +18,11 @@ Phases, each printing one JSON line with its elapsed seconds:
                     chain's sites (a (2, 96, 120, 184) UNet input: levels
                     at 120x184, 60x92, 30x46, 15x23) against their plain
                     versions, device time against bound and library
-  small_parity      a small restoration on the card (kernels) against the
-                    same restoration on the CPU (plain versions), under
-                    DDIM, dpmpp2m, a v-trained UNet, eta 0.5 (injected step
-                    noise), patch micro-batches and the whole-image chain
+  small_parity      (right after the build) a small restoration on the
+                    card (kernels) against the same restoration on the CPU
+                    (plain versions), under DDIM, dpmpp2m, a v-trained
+                    UNet, eta 0.5 (injected step noise), patch
+                    micro-batches and the whole-image chain
   restore           the flagship UNet (156,492,675 params) and HFRM
                     (15,941,667) with random weights restore two synthetic
                     720x480 images under the reference profile (25 steps,
@@ -70,7 +71,7 @@ Phases, each printing one JSON line with its elapsed seconds:
                     launch counts
   train_hfrm        one small HFRM train step on the card against the CPU;
                     then HFRMTrainer at full width on the 8 test pairs
-                    (whole 720x480 images, batch 8) for 6 steps in float32,
+                    (whole 720x480 images, batch 8) for 4 steps in float32,
                     bfloat16 over float32 parameters, and bfloat16 with
                     ``hfrm.remat``: ms/step, peak memory, the parameters
                     outside the residual blocks moved, ``lastest`` written
@@ -103,6 +104,19 @@ Phases, each printing one JSON line with its elapsed seconds:
                     each); stage 1's aux models (WDNet, SAM, HFRM with TLC)
                     and one full-width HFRM step with the GAN and
                     perceptual terms
+  multigpu          the multi-process paths (``parallel/dryrun.py``) on the
+                    one card, two worlds started together: world 1 over
+                    NCCL (torchrun's env rendezvous, the card's lock) and
+                    world 2 over gloo (both ranks on the card; gloo moves
+                    CUDA tensors through host copies).  Each runs a tiny
+                    FSDP2 (world 2: DDP) step, the tiny sharded sampler,
+                    the flagship's FSDP2 placement (world 1), a flagship
+                    production step in float32 and bfloat16 under DDP
+                    (and FSDP2 at world 1) held to one process's step on
+                    the 16 crops, two 720x480 images restored
+                    patch-parallel (90 patches, 2 steps) against the
+                    unsharded restore, and restore() over each rank's
+                    stripe; which collectives gloo takes on CUDA tensors
 
 then the kernel table as one JSON line, the nvidia-smi line, and the final
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -684,19 +698,15 @@ def synthetic_images(seed, n=N_IMAGES):
 
 
 def reset_counts():
-    from wavedm_tpu_torch.ops import fused_resblock, groupnorm_cuda, wavelet_cuda
+    from wavedm_tpu_torch.ops import reset_launch_counts
 
-    for counts in (groupnorm_cuda.launches, wavelet_cuda.launches,
-                   fused_resblock.launches):
-        for key in counts:
-            counts[key] = 0
+    reset_launch_counts()
 
 
 def read_counts():
-    from wavedm_tpu_torch.ops import fused_resblock, groupnorm_cuda, wavelet_cuda
+    from wavedm_tpu_torch.ops import launch_counts
 
-    return {**{f"group_norm_{k}": v for k, v in groupnorm_cuda.launches.items()},
-            **wavelet_cuda.launches, **fused_resblock.launches}
+    return launch_counts()
 
 
 def restore_timed(rest, images):
@@ -928,7 +938,8 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
     for name, rest in rests.items():
         outs[name], _, _ = counted_restore(rest, images, gn_want(steps, 1),
                                            name, launches)
-    for name in ("ddim", "dpmpp2m", "dpmpp2m", "ddim", "ddim", "dpmpp2m"):
+    # two turns (the script runs under a 5-minute cap)
+    for name in ("ddim", "dpmpp2m", "dpmpp2m", "ddim"):
         runs[name].append(restore_timed(rests[name], images)[2] / N_IMAGES)
     del rests
     ms = {name: sum(v) / len(v) for name, v in runs.items()}
@@ -947,7 +958,8 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
     mb = restorer(sampling__patch_micro_batch=16)
     mb_out, first_ms, _ = counted_restore(
         mb, images, gn_want(steps, chunks), "micro16", launches)
-    mb_ms = [restore_timed(mb, images)[2] / N_IMAGES for _ in range(2)]
+    # one steady run (the script runs under a 5-minute cap)
+    mb_ms = [restore_timed(mb, images)[2] / N_IMAGES]
     del mb
     diff = float((mb_out - outs["ddim"]).abs().max())
     assert diff <= bf16_gap, (diff, bf16_gap)
@@ -976,7 +988,7 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
         # float32 goes through cuDNN's float32 convolutions: seconds a run,
         # so its counted first run is its time
         w_ms = [restore_timed(rest, images)[2] / N_IMAGES
-                for _ in range(0 if name == "f32" else 2)] or [
+                for _ in range(0 if name == "f32" else 1)] or [
                     first_ms / N_IMAGES]
         del rest
         whole[name] = out
@@ -1092,7 +1104,9 @@ def serve_phase(launches):
             noise = torch.randn((SERVE_BATCH, 3, HEIGHT // 4, WIDTH // 4),
                                 generator=gen, device=rest.device)
         runs = []
-        for _ in range(1 if name == "float32" else 2):
+        # fused_groupnorm alone gets a steady run (the script runs under
+        # a 5-minute cap)
+        for _ in range(2 if name == "fused_groupnorm" else 1):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out, _ = rest.restore_image_device(images, noise=noise)
@@ -1711,7 +1725,7 @@ def train_data_phase(launches):
          batch_shape=list(firsts["streamed"].shape))
 
 
-HFRM_STEPS = 6
+HFRM_STEPS = 4         # cut from 6 for the 5-minute cap
 
 
 def hfrm_step_on(device, weights=None):
@@ -1750,9 +1764,10 @@ def train_hfrm_phase():
     """Stage-1 training: first one step of a small HFRM on the card against
     the CPU (float32: loss, PSNR and every gradient), then HFRMTrainer.fit
     at full width (15,941,667 parameters, identity-centre start) on the 8
-    RainDrop test pairs, whole 720x480 images in one batch of 8, for 6
-    steps in float32 (TF32 off), in bfloat16 over float32 parameters, and
-    in bfloat16 with ``hfrm.remat``: ms/step over steps 2-6, peak memory,
+    RainDrop test pairs, whole 720x480 images in one batch of 8, for
+    ``HFRM_STEPS`` steps in float32 (TF32 off), in bfloat16 over float32
+    parameters, and in bfloat16 with ``hfrm.remat``: ms/step over the
+    steps after the first, peak memory,
     a finite loss, every parameter outside the residual blocks moved (the
     blocks' get zero gradient from the identity-centre start), ``lastest``
     written."""
@@ -2712,6 +2727,10 @@ def wavelet_grad_rows():
          plain_ms=time_ms(lambda: torch.cat(
              [wv.wavelet_rec_plain(gz[:, :48]),
               wv.wavelet_rec_plain(gz[:, 48:])], dim=1)),
+         library_ms=time_ms(lambda: torch.cat(
+             [F.conv_transpose2d(gz[:, :48], bank, stride=4, groups=3),
+              F.conv_transpose2d(gz[:, 48:], bank, stride=4, groups=3)],
+             dim=1)),
          bound_ms=bound_ms(gz, x6), launches_on_paths=0)
     emit("switches", kernel="wavelet_grad", rec_backward_rel_err=errs[
         "rec_backward"], dec_backward_rel_err=errs["dec_backward"],
@@ -3033,6 +3052,143 @@ def switches_phase(launches, rows):
     emit("switches", seconds=time.perf_counter() - t_phase)
 
 
+MULTIGPU_DEADLINE = 900.0   # seconds each world may live, the wait included
+BUILD_DIR = os.path.join(ROOT, "wavedm_tpu_torch", "_build")
+WORLDS = {}                 # the multigpu phase's worlds, once started
+
+
+def _gate(name):
+    return os.path.join(BUILD_DIR, f"multigpu_{name}.gate")
+
+
+def start_multigpu():
+    """Start the multigpu phase's two worlds (``parallel/dryrun.py``):
+    world 1 over NCCL, as torchrun starts it (env rendezvous on
+    127.0.0.1, the card's lock at a path of its own, since this process
+    may hold the default one), and world 2 over gloo with both ranks on
+    the card (NCCL refuses two ranks on one device).  They start before
+    the card phase: their start-up (imports, the group, the card's
+    context) and their tiny phases run beside nvcc's build and
+    ``small_parity``, which time nothing.  Their tiny phases wait for
+    :func:`open_gates` ``(".build")``, once this process has built the
+    kernel library; :func:`await_multigpu` holds the timed phases until
+    they are done, and each world then waits at its gate until
+    :func:`multigpu_phase` opens it, so its flagship phases run alone."""
+    from wavedm_tpu_torch.parallel.dryrun import start_dryrun
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    for name in ("nccl_world1", "gloo_world2"):
+        for path in [_gate(name), f"{_gate(name)}.build"] + [
+                f"{_gate(name)}.ready{r}" for r in range(2)]:
+            if os.path.exists(path):
+                os.remove(path)
+    WORLDS["nccl_world1"] = start_dryrun(
+        1, "cuda", "nccl", full=True, lock=True, rendezvous="env",
+        gate=_gate("nccl_world1"), deadline=MULTIGPU_DEADLINE,
+        env={"WAVEDM_GPU_LOCK": os.path.join(BUILD_DIR, "multigpu.lock")})
+    WORLDS["gloo_world2"] = start_dryrun(
+        2, "cuda:0", "gloo", full=True, gate=_gate("gloo_world2"),
+        deadline=MULTIGPU_DEADLINE)
+
+
+def open_gates(suffix=""):
+    """Open the gate ``<gate><suffix>`` of every started world."""
+    for name in WORLDS:
+        with open(_gate(name) + suffix, "w") as f:
+            f.write("open\n")
+
+
+def await_multigpu(timeout_s=300.0):
+    """Wait until every rank of :func:`start_multigpu` has done its tiny
+    phases (or one has ended: :func:`multigpu_phase` reports it); returns
+    the seconds waited."""
+    t = time.perf_counter()
+    while time.perf_counter() - t < timeout_s:
+        pending = [w for name, w in WORLDS.items()
+                   for r, p in enumerate(w.procs)
+                   if p.poll() is None
+                   and not os.path.exists(f"{_gate(name)}.ready{r}")]
+        if not pending:
+            break
+        time.sleep(0.05)
+    return time.perf_counter() - t
+
+
+def multigpu_phase(launches):
+    """Open the gates of :func:`start_multigpu`'s worlds and collect them.
+    Every check is the ranks' own (a failing rank fails the phase); here
+    the restore() means are held to the union of the ranks' per-image
+    metrics, and the launches of the runs that went through DDP, FSDP2
+    and the sharded chain join the kernel table's counts."""
+    import numpy as np
+
+    t = time.perf_counter()
+    open_gates()
+    for name, world in WORLDS.items():
+        reports = world.join()
+        # every phase ran on every rank, FSDP2's included: a missing check
+        # fails here, not only a failing one
+        for r in reports:
+            ph = r["phases"]
+            assert ph["tiny_train_step"]["sharded_leaves"] > 0, (name, ph)
+            assert ph["flagship_fsdp_placement"]["params"] == 156_492_675
+        checks = reports[0]["phases"]["flagship_steps"]["checks"]
+        gates = ["f32_ddp_vs_one_process", "f32_fsdp_vs_ddp"] + (
+            ["bf16_ddp_vs_one_process", "bf16_fsdp_vs_ddp"]
+            if len(reports) == 1 else [])
+        assert all(checks.get(k, 2.0) <= 1.0 for k in gates), (name, checks)
+        if len(reports) == 1:
+            world1 = checks
+        else:
+            # the bfloat16 step over ranks: its loss within world 1's
+            # bf16-vs-f32 loss gap of world 1's loss (one global batch)
+            gap = abs(world1["bf16_ref_loss"] - world1["f32_ref_loss"])
+            checks["bf16_ddp_loss_err"] = err = abs(
+                checks["bf16_ddp_loss"] - world1["bf16_ref_loss"])
+            checks["bf16_vs_f32_loss_gap"] = gap
+            assert err <= gap, (name, err, gap)
+        done = reports[0]["phases"]["flagship_restore"]["checks"]
+        assert done["f32_max_abs_err"] <= 1e-3, (name, done)
+        assert done["bf16_max_abs_err"] <= done["bf16_vs_f32_gap"], done
+        ranks_launches = dict.fromkeys(read_counts(), 0)
+        for r in reports:
+            for phase in ("flagship_steps", "flagship_restore"):
+                for counts in r["phases"][phase]["launches"].values():
+                    for key, val in counts.items():
+                        ranks_launches[key] = ranks_launches.get(key, 0) + val
+        for key in launches:
+            launches[key] += ranks_launches.get(key, 0)
+        # restore(): every rank reports the means over all ranks' images
+        res = [r["phases"]["flagship_restore"]["checks"] for r in reports]
+        scores = [s for c in res for s in c["scores"]]
+        union = np.mean([s[1:] for s in scores], axis=0)
+        for c in res:
+            got = [c["restore"][k] for k in ("psnr_torch", "psnr_y",
+                                             "psnr_np_y", "ssim")]
+            assert c["restore"]["n_images"] == 2, c["restore"]
+            assert np.allclose(got, union, rtol=0, atol=1e-12), (got, union)
+        want = ["fused_gn_swish_conv_f32", "fused_gn_swish_conv_bf16",
+                "wavelet_dec", "wavelet_rec", "group_norm_f32_swish",
+                "group_norm_bf16_swish"]
+        assert all(ranks_launches[k] > 0 for k in want), ranks_launches
+        r0 = reports[0]
+        emit("multigpu", world=name, backend=r0["backend"],
+             ranks=[r["device"] for r in reports],
+             seconds=[r["s"] for r in reports],
+             phase_seconds={k: v["s"] for k, v in r0["phases"].items()},
+             collectives=r0["collectives"],
+             tiny=r0["phases"]["tiny_train_step"],
+             sampler=r0["phases"]["sharded_sampler"],
+             placement=r0["phases"]["flagship_fsdp_placement"],
+             steps=r0["phases"]["flagship_steps"]["checks"],
+             restore={k: v for k, v in res[0].items() if k != "scores"},
+             restore_union=union.tolist(),
+             tiny_seconds=[r["tiny_s"] for r in reports],
+             peak_bytes=[r.get("peak_bytes") for r in reports],
+             launches={k: v for k, v in ranks_launches.items() if v})
+    emit("multigpu", seconds=time.perf_counter() - t)
+
+
 def gn_sweep(cfg, n_patches):
     """The GroupNorm kernel under each launch plan at every flagship site
     shape, swish on (the chosen plan also with swish off): the share of its
@@ -3083,7 +3239,7 @@ def partial(phases, ref_cfg, prod_cfg):
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
     training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
-    ``serve``, ``variants`` and ``switches``."""
+    ``serve``, ``variants``, ``switches`` and ``multigpu``."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
@@ -3103,6 +3259,10 @@ def partial(phases, ref_cfg, prod_cfg):
         variants_phase(scratch, {})
     if "switches" in phases:
         switches_phase(scratch, {})
+    if "multigpu" in phases:
+        start_multigpu()
+        open_gates(".build")
+        multigpu_phase(scratch)
     if "restore" in phases:
         from wavedm_tpu_torch.inference.loader import build_restorer
 
@@ -3128,7 +3288,8 @@ def main(argv=None):
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
                     "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
-                    "serve,variants,switches to run alone; no final lines")
+                    "serve,variants,switches,multigpu to run alone; no "
+                    "final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -3141,9 +3302,17 @@ def main(argv=None):
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
+    # nvcc's processes run beside the start-up below
+    pool = ThreadPoolExecutor(1)
+    built = pool.submit(_build.build)
+    pool.shutdown(wait=False)
     from wavedm_tpu_torch.config import production_profile, reference_profile
     from wavedm_tpu_torch.inference.loader import build_hfrm, build_restorer
 
+    if not args.phases:
+        start_multigpu()
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3153,8 +3322,10 @@ def main(argv=None):
          package=os.path.dirname(_build.CSRC_DIR))
 
     t = time.perf_counter()
+    built.result()
     _build.library()
-    emit("build", seconds=time.perf_counter() - t,
+    open_gates(".build")
+    emit("build", waited_s=time.perf_counter() - t,
          nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
          ptxas=ptxas_report(_build.last_ptxas))
 
@@ -3164,12 +3335,15 @@ def main(argv=None):
         cfg.parallel.fused_groupnorm = True
     if args.phases:
         return partial(set(args.phases.split(",")), ref_cfg, prod_cfg)
+    # checks alone, no timing: it may run beside the multigpu worlds'
+    # start-up; the timed phases wait for them
+    small_parity()
+    emit("multigpu", part="start-up and tiny phases beside the build and "
+         "small_parity", waited_s=await_multigpu())
     k_per_image = 45
     rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
     rows.update(check_fused_kernels(ref_cfg))
     check_whole_image_kernels(prod_cfg)
-
-    small_parity()
 
     images = synthetic_images(SEED)
     launches = dict.fromkeys(rows, 0)
@@ -3312,6 +3486,7 @@ def main(argv=None):
     pipeline_phase(launches)
     shutil.rmtree(os.path.join(ROOT, "wavedm_tpu_torch", "_build",
                                "smoke_data"), ignore_errors=True)
+    multigpu_phase(launches)
 
     for key, val in launches.items():
         assert val > 0, f"kernel {key} never ran on the main path"
@@ -3332,4 +3507,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for world in WORLDS.values():     # none outlives the script
+            world.close()
+    sys.exit(rc)

@@ -80,3 +80,35 @@ def test_no_card_and_no_device_raises(lock_file, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         acquire_gpu_lock("serve")
     assert not lock_file.exists()
+
+
+def test_one_lock_a_card(lock_file, monkeypatch, tmp_path):
+    """Card 1's lock is its own file: a holder of card 0's (another
+    process, as another rank of a torchrun world would be) keeps card 0
+    from this process and leaves card 1 free."""
+    assert gpu_lock.lock_path(0) == str(lock_file)
+    assert gpu_lock.lock_path(1) == f"{lock_file}.1"
+    ready = tmp_path / "ready"
+    holder = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, time, torch; sys.path.insert(0, sys.argv[1]);"
+         "from wavedm_tpu_torch.utils import gpu_lock;"
+         "gpu_lock.resolve_device = lambda d=None: torch.device('cuda', 0);"
+         "assert gpu_lock.acquire_gpu_lock('rank0');"
+         f"open({str(ready)!r}, 'w').write('1'); time.sleep(5)", REPO],
+        env=dict(os.environ))
+    try:
+        for _ in range(300):
+            if ready.exists():
+                break
+            time.sleep(0.1)
+        assert ready.exists(), "holder never acquired"
+        monkeypatch.setattr(gpu_lock, "resolve_device",
+                            lambda device=None: torch.device(device))
+        assert acquire_gpu_lock("rank1", "cuda:1", timeout=0, verbose=False)
+        assert "name=rank1" in open(f"{lock_file}.1").read()
+        assert "name=rank0" in lock_file.read_text()
+        assert not acquire_gpu_lock("t", "cuda:0", timeout=1, poll=0.2,
+                                    verbose=False)
+    finally:
+        holder.wait(60)

@@ -40,6 +40,10 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         for name in ("ops.tlc", "models.vgg_loss", "models.wdnet",
                      "models.sam"):
             assert "wavedm_tpu_torch." + name in names, name
+        # and so do the multi-process paths
+        for name in ("parallel", "parallel.mesh", "parallel.distributed",
+                     "parallel.launch", "parallel.dryrun"):
+            assert "wavedm_tpu_torch." + name in names, name
         import torch
         from wavedm_tpu_torch.models.sam import SAM
         from wavedm_tpu_torch.models.vgg_loss import VGG19Features

@@ -113,12 +113,11 @@ def test_tiled_sampler_matches_jax(x0_keep):
     dict(pred_type="x0"), dict(mesh=object()), dict(patch_micro_batch=-8),
 ])
 def test_unported_options_raise(option):
-    """The JAX option the port does not carry (a device mesh) raises
-    NotImplementedError; settings that JAX refuses or cannot run (a
-    stochastic dpmpp2m, an unknown solver or parameterization, a negative
-    micro-batch) raise ValueError."""
-    unported = {"mesh"} & set(option)
-    with pytest.raises(NotImplementedError if unported else ValueError):
+    """Settings that JAX refuses or cannot run (a stochastic dpmpp2m, an
+    unknown solver or parameterization, a negative micro-batch) and a mesh
+    that is not the port's ``DataMesh`` raise ValueError (the patch-parallel
+    chain itself: ``tests/test_torch_parallel.py``)."""
+    with pytest.raises(ValueError):
         sampling.make_overlapping_sampler(
             lambda x, t: x, image_shape=(16, 16), patch_size=8, grid_r=4,
             seq=np.arange(0, 50, 5), betas=torch.linspace(1e-4, 2e-2, 50),

@@ -355,10 +355,8 @@ def test_a_burst_beyond_the_stdlib_backlog_fills_one_batch():
 
 # -------------------------------------------------------------------- CLI
 
-def test_serve_cli_refuses_patch_shard_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        serve_cli.main(["--config", "production", "--resume", "",
-                        "--patch-shard", "--device", "cpu"])
+def test_serve_cli_refuses_a_missing_card(monkeypatch):
+    """(``--patch-shard`` serves: ``tests/test_torch_parallel_serve.py``.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--config", "production", "--resume", ""])

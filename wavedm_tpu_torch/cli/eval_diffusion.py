@@ -16,7 +16,9 @@ shipped config runs: the wavelet path (the only one that reads
 (``raindrop_lap.yaml``, which restores from each [cond | gt] pair).
 ``--resume`` takes a reference ``.pth``/``.pth.tar`` or the port's own
 checkpoint; without it the weights are random (seeded).  Runs on the card
-unless ``--device`` names another.
+unless ``--device`` names another.  Under ``torchrun --nproc-per-node N``
+each rank restores its own stripe of the pairs and every rank prints the
+means over all of them; rank 0 writes the dumps.
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Synthetic pairs instead of the RainDrop test split")
     p.add_argument("--ema", action="store_true",
                    help="Evaluate the checkpoint's EMA weights")
-    p.add_argument("--n-images", type=int, default=0, help="Cap image count")
+    p.add_argument("--n-images", type=int, default=0,
+                   help="Cap image count (of each process's stripe under "
+                        "torchrun)")
     p.add_argument("--eval-batch", type=int, default=1,
                    help="Restore N same-geometry images per batch")
     p.add_argument("--device", default=None,
@@ -72,8 +76,12 @@ def main(argv=None) -> int:
 
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                       process_count,
+                                                       process_index)
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    initialize_multihost(device=args.device)
     acquire_gpu_lock("eval_diffusion", args.device)
     cfg = load_config(args.config, args.overrides)
     for name, val in (("grid_r", args.grid_r),
@@ -101,11 +109,13 @@ def main(argv=None) -> int:
 
         src = SyntheticPairs(n_images=args.n_images or 2)
         samples = ((np.concatenate(src[i], axis=-1), f"synthetic{i}")
-                   for i in range(len(src)))
+                   for i in range(process_index(), len(src),
+                                  process_count()))
     else:
         from wavedm_tpu_torch.data.raindrop import RainDrop
 
-        samples = RainDrop(cfg).eval_samples()
+        samples = RainDrop(cfg, process_index(),
+                           process_count()).eval_samples()
         if args.n_images:
             samples = itertools.islice(samples, args.n_images)
     res = restorer.restore(samples, save_dir=args.image_folder or None,

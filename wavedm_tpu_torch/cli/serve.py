@@ -20,6 +20,15 @@ converted from the JAX package's Orbax checkpoints
 (``cli/convert_orbax.py``); ``--resume ''`` serves random (seeded)
 weights.  Requests must be PNG.  Runs on the card unless ``--device``
 names another.
+
+Patch-parallel serving, one process per card:
+
+  torchrun --nproc-per-node 4 -m wavedm_tpu_torch.cli.serve \
+      --config production --resume <ckpt> --hfrm-ckpt <ckpt> --patch-shard
+
+splits each chain's patch batch over the cards; rank 0 serves HTTP and
+hands each batch to the other ranks (``inference/server.py``).  Outside
+``torchrun`` ``--patch-shard`` is a world of one.
 """
 
 from __future__ import annotations
@@ -57,8 +66,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup", action="store_true",
                    help="restore one 720x480 batch before serving")
     p.add_argument("--patch-shard", action="store_true",
-                   help="patch-parallel serving over all local devices "
-                        "(not ported: ROADMAP item 13)")
+                   help="split each chain's patches over the processes "
+                        "torchrun started, one a card (patch-parallel "
+                        "serving; a world of one outside torchrun)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return p.parse_args(argv)
@@ -66,10 +76,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.patch_shard:
-        raise NotImplementedError(
-            "--patch-shard: patch-parallel serving over several cards is "
-            "not ported (ROADMAP item 13)")
     import time
 
     import numpy as np
@@ -77,8 +83,15 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.config import load_config
     from wavedm_tpu_torch.inference.loader import build_restorer
     from wavedm_tpu_torch.inference.server import RestorationServer
+    from wavedm_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                       process_count)
+    from wavedm_tpu_torch.parallel.mesh import make_mesh
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    initialize_multihost(device=args.device)
+    if process_count() > 1 and not args.patch_shard:
+        raise ValueError("several processes serve one restorer only "
+                         "patch-parallel: pass --patch-shard")
     acquire_gpu_lock("serve", args.device)
     cfg = load_config(args.config, args.overrides)
     for name, val in (("t_start", args.t_start),
@@ -91,17 +104,22 @@ def main(argv=None) -> int:
             setattr(cfg.sampling, name, val)
     cfg.validate()
 
+    mesh = make_mesh(device=args.device) if args.patch_shard else None
+    if mesh is not None:
+        print(f"patch-parallel serving over {mesh.size} process(es)")
     restorer = build_restorer(cfg, args.resume or None,
                               args.hfrm_ckpt or cfg.hfrm.ckpt_path or None,
-                              device=args.device, ema=args.ema)
+                              device=args.device, ema=args.ema, mesh=mesh)
     server = RestorationServer(restorer, batch=args.batch,
                                window_ms=args.window_ms,
                                no_resize=args.no_resize,
                                rng_seed=cfg.training.seed)
+    if mesh is not None and mesh.rank != 0:
+        server.follow()
+        return 0
     if args.warmup:
         t0 = time.time()
-        restorer.restore_image(np.zeros((args.batch, 480, 720, 3),
-                                        np.float32))
+        server.run_batch(np.zeros((args.batch, 480, 720, 3), np.float32))
         print(f"warmup (batch {args.batch}, 720x480): "
               f"{time.time() - t0:.1f}s")
 
@@ -116,6 +134,10 @@ def main(argv=None) -> int:
     finally:
         httpd.server_close()
         server.stop()
+    if server.failed is not None:
+        # a patch-parallel batch failed: exit non-zero so the launcher
+        # ends the other ranks
+        raise RuntimeError("patch-parallel serving stopped") from server.failed
     return 0
 
 

@@ -21,6 +21,16 @@ wavelet, pixel (``raindrop.yaml``), global-attention
 whole, and ``data.device_cache`` is not used) and Laplacian
 (``raindrop_lap.yaml``) domains.  Runs on the card unless ``--device``
 names another.
+
+Data-parallel over several cards, one process each (the Laplacian domain
+trains on one):
+
+  torchrun --nproc-per-node 4 -m wavedm_tpu_torch.cli.train_diffusion \
+      --config ... --hfrm-ckpt ...
+
+Each rank reads its own stripe of the split (every ``N``-th pair), so the
+global batch is ``training.batch_size * patch_n`` crops times the number of
+processes; rank 0 validates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -124,7 +134,8 @@ def make_validate(trainer, dataset, hfrm_weights,
         try:
             res = box["r"].restore(
                 itertools.islice(dataset.eval_samples(), VAL_PAIRS),
-                save_dir=os.path.join(val_folder, f"step{step}"))
+                save_dir=os.path.join(val_folder, f"step{step}"),
+                reduce=False)              # rank 0 validates alone
         finally:
             state.model.train()
         print(f"[validate @ {step}] psnr {res['psnr_torch']:.3f} "
@@ -136,10 +147,15 @@ def make_validate(trainer, dataset, hfrm_weights,
 def main(argv=None) -> int:
     args = parse_args(argv)
     from wavedm_tpu_torch.config import load_config
+    from wavedm_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                       process_count,
+                                                       process_index)
     from wavedm_tpu_torch.training.trainer import DiffusionTrainer
     from wavedm_tpu_torch.utils.checkpoint import find_latest_checkpoint
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    # the process group first, as the JAX script's multihost rendezvous
+    initialize_multihost(device=args.device)
     acquire_gpu_lock("train_diffusion", args.device)
     cfg = load_config(args.config, args.overrides)
     if args.seed is not None:
@@ -165,7 +181,8 @@ def main(argv=None) -> int:
         return 0
     from wavedm_tpu_torch.data.raindrop import RainDrop
 
-    dataset = RainDrop(cfg, device=trainer.device)
+    dataset = RainDrop(cfg, process_index(), process_count(),
+                       device=trainer.device)
     trainer.fit(dataset.train_batches, max_steps=args.max_steps or None,
                 ckpt_dir=ckpt_dir,
                 validate_fn=make_validate(trainer, dataset, hfrm_weights,

@@ -17,7 +17,9 @@ is what ``--hfrm-ckpt`` of the other entry points takes.  The opt-in loss
 terms come on with ``--set hfrm.use_perceptual=true`` (VGG19 features,
 torchvision weights from ``hfrm.vgg_ckpt``) and ``--set hfrm.use_gan=true``
 (the PatchGAN discriminator, checkpointed with the generator).  Runs on
-the card unless ``--device`` names another.
+the card unless ``--device`` names another.  Under ``torchrun
+--nproc-per-node N`` it trains data-parallel, each rank on its own stripe
+of the split (a global batch of ``hfrm.batch_size * N``).
 """
 
 from __future__ import annotations
@@ -57,9 +59,13 @@ def main(argv=None) -> int:
     import torch
 
     from wavedm_tpu_torch.config import load_config
+    from wavedm_tpu_torch.parallel.distributed import (initialize_multihost,
+                                                       process_count,
+                                                       process_index)
     from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
 
+    initialize_multihost(device=args.device)
     acquire_gpu_lock("train_hfrm", args.device)
     cfg = load_config(args.config, args.overrides)
     trainer = HFRMTrainer(cfg, device=args.device)
@@ -89,7 +95,9 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.data.raindrop import RainDropDataset
 
     ds = RainDropDataset(os.path.join(cfg.data.data_dir, "raindrop", "train"),
-                         patch_size=0, patch_n=1, parse_patches=False)
+                         patch_size=0, patch_n=1, parse_patches=False,
+                         process_index=process_index(),
+                         process_count=process_count())
     bs, seed = cfg.hfrm.batch_size, cfg.training.seed
     if cfg.data.device_cache:
         from wavedm_tpu_torch.data.device_cache import to_unit

@@ -12,7 +12,7 @@ same batches.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,15 +69,19 @@ class DeviceCropCache:
         return to_unit(self.data[c[:, 0, None, None], rows, cols])
 
     def draw_coords(self, order: Sequence[int], seed: int, epoch: int,
-                    patch_n: int) -> Iterator[np.ndarray]:
-        """(patch_n, 3) int32 coordinates for each image of ``order``, drawn
-        as the streamed path draws its crops."""
+                    patch_n: int, rows: Optional[Mapping[int, int]] = None
+                    ) -> Iterator[np.ndarray]:
+        """(patch_n, 3) int32 coordinates for each image of ``order`` (its
+        index in the split), drawn as the streamed path draws its crops;
+        ``rows`` maps an index to its row of the cache when the cache holds
+        one process's stripe of the split (the index itself otherwise)."""
         p = self.patch_size
         for idx in order:
             rng = np.random.default_rng((seed, epoch, int(idx)))
             ys = rng.integers(0, max(1, self.h - p + 1), patch_n)
             xs = rng.integers(0, max(1, self.w - p + 1), patch_n)
-            yield np.stack([np.full(patch_n, idx), ys, xs],
+            row = int(idx) if rows is None else rows[int(idx)]
+            yield np.stack([np.full(patch_n, row), ys, xs],
                            axis=1).astype(np.int32)
 
 

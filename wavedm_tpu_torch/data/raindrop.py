@@ -18,8 +18,9 @@ as PNG (``utils/images.read_png``).
 - Eval: each pair at the canonical eval geometry (720x480, capped at 1024,
   rounded up to /16), ``resize_lanczos``-resized where it is not there.
 - Each process takes every ``process_count``-th index from
-  ``process_index``; one process runs today (multi-GPU is ROADMAP item
-  13).  The epoch number is folded into the shuffle seed.
+  ``process_index`` (the ranks of a ``torchrun`` world, whose CLIs pass
+  them), and its device cache holds that stripe alone.  The epoch number is
+  folded into the shuffle seed.
 
 The JAX package's native C++ decoder is not ported: its crop stream
 differs from the PIL path's by design, and this path follows the PIL one.
@@ -224,14 +225,18 @@ class RainDrop:
             from wavedm_tpu_torch.data.device_cache import build_pair_cache
 
             if self._cache is None:
-                self._cache = build_pair_cache(ds.inputs, ds.gts,
-                                               cfg.data.patch_size,
-                                               self.device)
+                # this process's stripe, row r holding pair ds.indices[r]
+                self._cache = build_pair_cache(
+                    [ds.inputs[i] for i in ds.indices],
+                    [ds.gts[i] for i in ds.indices], cfg.data.patch_size,
+                    self.device)
             order = np.array(ds.indices)
             np.random.default_rng(seed + epoch).shuffle(order)
+            rows = {idx: r for r, idx in enumerate(ds.indices)}
             buf = []
             for coords in self._cache.draw_coords(order, seed, epoch,
-                                                  cfg.training.patch_n):
+                                                  cfg.training.patch_n,
+                                                  rows):
                 buf.append(coords)
                 if len(buf) == bs:
                     yield self._cache.crop_batch(np.concatenate(buf))

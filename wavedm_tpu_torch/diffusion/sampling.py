@@ -13,8 +13,16 @@ the implied epsilon, on the tiled path after the overlap average).  With
 ``eta`` > 0 each step adds noise drawn from an explicit
 ``torch.Generator``, or taken from an injected ``step_noise`` of shape
 (T, B, C, H, W).  With ``use_fft`` each patch's conditioning carries its
-FFT amplitude and phase (:func:`fft_condition`).  ``mesh`` of the JAX
-sampler is not ported and raises (ROADMAP item 13).
+FFT amplitude and phase (:func:`fft_condition`).
+
+With a ``mesh`` of more than one rank (``parallel/mesh.py``) the tiled
+chain is patch-parallel, as JAX's is over its mesh: each rank runs the
+UNet on its contiguous range of the B*K patches, scatter-adds its
+estimates into a full-size accumulator of zeros, and one all-reduce (SUM)
+a step gives every rank the whole sum before the same division and update.
+That moves B*pred*h*w floats a step (518 KB at B = 2 on a 720x480 image)
+and needs no padding for an uneven split.  Every rank must pass the same
+x_init; the noise of each step at ``eta`` > 0 is rank 0's, broadcast.
 
 With ``use_global`` the model also takes the B whole images and the image
 of each patch it is handed, so every patch attends to its own image's
@@ -30,8 +38,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wavedm_tpu_torch.diffusion.schedules import alpha_bars
+from wavedm_tpu_torch.parallel.mesh import DataMesh
 
 __all__ = ["real_bins", "fft_condition", "overlapping_grid_corners",
            "ddim_sample",
@@ -179,6 +189,20 @@ def _noise_source(eta: float, generator: Optional[torch.Generator],
                                  device=x.device, dtype=x.dtype)
 
 
+def _broadcast_noise(noise: Callable[[int], Optional[torch.Tensor]],
+                     mesh: DataMesh) -> Callable[[int], Optional[torch.Tensor]]:
+    """The noise source with each step's draw taken from rank 0, so every
+    rank of a patch-parallel chain adds the same noise."""
+    def rank0(i: int) -> Optional[torch.Tensor]:
+        z = noise(i)
+        if z is not None:
+            z = z.contiguous()
+            mesh.broadcast(z)
+        return z
+
+    return rank0
+
+
 def _reverse_step(s: Dict[str, float], xt: torch.Tensor, et: torch.Tensor,
                   d_prev: Optional[torch.Tensor], pred_type: str,
                   noise: Optional[torch.Tensor]):
@@ -245,7 +269,7 @@ def make_overlapping_sampler(
     use_fft: bool = False,
     use_global: bool = False,
     patch_micro_batch: int = 0,
-    mesh=None,
+    mesh: Optional[DataMesh] = None,
     x0_keep: Optional[int] = None,
     pred_type: str = "eps",
     solver: str = "ddim",
@@ -262,12 +286,14 @@ def make_overlapping_sampler(
     ``patch_micro_batch`` = mb > 0 it sees chunks of at most mb patches.
     With ``use_global``, ``sample`` also takes ``x_global`` (B, Cg, Hg, Wg)
     and the model is called as ``model_fn(x, t, x_global, index)``, where
-    ``index`` (N,) holds the image of each of its N patches.
+    ``index`` (N,) holds the image of each of its N patches.  With a
+    ``mesh`` of more than one rank, each rank's ``model_fn`` sees only its
+    range of the patches (``index`` still the global image); a mesh of one
+    takes the unsharded path.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_overlapping_sampler: mesh is not ported to the PyTorch "
-            "sampler (ROADMAP item 13)")
+    if mesh is not None and not isinstance(mesh, DataMesh):
+        raise ValueError(f"mesh must be a DataMesh, got {type(mesh)}")
+    sharded = mesh is not None and mesh.size > 1
     _check_chain(solver, eta, pred_type)
     if patch_micro_batch < 0:
         raise ValueError("patch_micro_batch must be >= 0")
@@ -283,21 +309,33 @@ def make_overlapping_sampler(
         pat = torch.stack([img[:, :, i:i + p, j:j + p] for i, j in corners], 1)
         return pat.reshape((-1,) + pat.shape[2:])
 
-    def scatter_mean(et_p: torch.Tensor, b: int,
-                     counts: torch.Tensor) -> torch.Tensor:
-        # sum the B*K estimates back per image in corner order, normalize
+    def scatter_mean(et_p: torch.Tensor, b: int, counts: torch.Tensor,
+                     lo: int = 0) -> torch.Tensor:
+        # sum the estimates of patches lo.. back per image in corner order
+        # (zeros for the other ranks' patches, then summed over the ranks),
+        # normalize
+        n = b * len(corners)
+        if et_p.shape[0] != n:
+            full = et_p.new_zeros((n,) + et_p.shape[1:])
+            full[lo:lo + et_p.shape[0]] = et_p
+            et_p = full
         et_b = et_p.reshape((b, len(corners)) + et_p.shape[1:])
         acc = et_p.new_zeros((b, et_p.shape[1], h, w))
         for k, (i, j) in enumerate(corners):
             acc[:, :, i:i + p, j:j + p] += et_b[:, k]
+        if sharded:
+            dist.all_reduce(acc, group=mesh.group)
         return acc / counts
 
     def apply_model(inp: torch.Tensor, t: float,
-                    x_global: Optional[torch.Tensor]) -> torch.Tensor:
+                    x_global: Optional[torch.Tensor],
+                    lo: int = 0) -> torch.Tensor:
+        # inp holds patches lo..lo+n-1 of the image-major order
         n = inp.shape[0]
         tt = torch.full((n,), t, dtype=torch.float32, device=inp.device)
         if use_global:
-            index = torch.arange(n, device=inp.device) // len(corners)
+            index = (torch.arange(lo, lo + n, device=inp.device)
+                     // len(corners))
 
             def call(sl):
                 return model_fn(inp[sl], tt[sl], x_global, index[sl])
@@ -321,15 +359,25 @@ def make_overlapping_sampler(
                              f"image for each of the {b} images")
         counts = torch.as_tensor(counts_np, device=x_init.device)
         noise = _noise_source(eta, generator, step_noise, len(steps), x_init)
-        cond_p = gather(x_cond)
+        if sharded:
+            noise = _broadcast_noise(noise, mesh)
+            if b * len(corners) < mesh.size:        # every rank raises
+                raise ValueError(f"{mesh.size} ranks for {b * len(corners)} "
+                                 "patches: a rank would have none")
+            lo, hi = mesh.span(b * len(corners))
+            take = lambda img: gather(img)[lo:hi]   # noqa: E731
+        else:
+            lo, take = 0, gather
+        cond_p = take(x_cond)
         static_p = [fft_condition(cond_p) if use_fft else cond_p]
         if use_other:
-            static_p.append(gather(x_other))
+            static_p.append(take(x_other))
         xt, kept, x0s = x_init, None, []
         x0_t = torch.zeros_like(x_init) if solver == "dpmpp2m" else None
         for i, s in enumerate(steps):
-            inp = torch.cat([static_p[0], gather(xt)] + static_p[1:], dim=1)
-            et = scatter_mean(apply_model(inp, s["t"], x_global), b, counts)
+            inp = torch.cat([static_p[0], take(xt)] + static_p[1:], dim=1)
+            et_p = apply_model(inp, s["t"], x_global, lo)
+            et = scatter_mean(et_p, b, counts, lo)
             xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
             if keep_idx is None:
                 x0s.append(x0_t)

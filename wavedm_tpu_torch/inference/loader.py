@@ -104,16 +104,17 @@ def build_hfrm(cfg: Config, weights: Weights = None, device=None) -> HFRM:
 
 
 def build_restorer(cfg: Config, unet_sd: Weights, hfrm_sd: Weights = None,
-                   device=None, ema: bool = False):
+                   device=None, ema: bool = False, mesh=None):
     """The restoration runner for a validated config on ``device`` (the
     card when None).  ``ema`` picks the EMA shadow of a UNet checkpoint.
     Only the wavelet path builds the HFRM (random weights when ``hfrm_sd``
     is None); the pixel and Laplacian paths and ``wavelet_in_unet``
-    ignore ``hfrm_sd``."""
+    ignore ``hfrm_sd``.  ``mesh``: a data mesh (``parallel/mesh.py``) for
+    a patch-parallel tiled chain."""
     from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
 
     device = resolve_device(device)
     unet = build_unet(cfg, unet_sd, device, ema=ema)
     hfrm = (build_hfrm(cfg, hfrm_sd, device) if cfg.data.wavelet_domain
             else None)
-    return DiffusiveRestoration(cfg, unet, hfrm, device=device)
+    return DiffusiveRestoration(cfg, unet, hfrm, device=device, mesh=mesh)

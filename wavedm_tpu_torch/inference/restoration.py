@@ -29,6 +29,16 @@ batch per step.  Tensors are NCHW inside; the public entry points take and
 return NHWC images as the JAX ``DiffusiveRestoration`` does.
 :meth:`DiffusiveRestoration.restore` scores (pair, id) samples with the
 reference's PSNR variants and SSIM on the host and can dump the images.
+
+Two kinds of parallelism over ``torchrun``'s processes
+(``parallel/distributed.py``), as in JAX:
+- with a ``mesh`` the tiled chain is patch-parallel: every rank restores
+  the same images, each running the UNet on its range of the patches
+  (``diffusion/sampling.py``), with rank 0's x_T;
+- :meth:`DiffusiveRestoration.restore` in a process group scores each
+  rank's own stripe of the pairs (``data/raindrop.py``) and all-reduces
+  the metric sums, so every rank reports the full set's means; rank 0
+  alone writes the dumps.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -47,6 +58,10 @@ from wavedm_tpu_torch.diffusion.schedules import (ddim_timesteps,
                                                   get_beta_schedule)
 from wavedm_tpu_torch.inference.loader import resolve_device
 from wavedm_tpu_torch.ops.wavelet import wavelet_dec, wavelet_rec
+from wavedm_tpu_torch.parallel.distributed import (collective_device,
+                                                   process_count,
+                                                   process_index)
+from wavedm_tpu_torch.parallel.mesh import DataMesh
 
 __all__ = ["data_transform", "inverse_data_transform", "refuse_lap",
            "DiffusiveRestoration"]
@@ -86,14 +101,19 @@ class DiffusiveRestoration:
         take none.
       device: where everything runs; the card when None (raises if there
         is none).
+      mesh: a data mesh (``parallel/mesh.py``) over which the tiled chain
+        is patch-parallel; None or a mesh of one rank runs it whole.
     """
 
     def __init__(self, cfg: Config, unet: nn.Module,
-                 hfrm: Optional[nn.Module] = None, device=None):
+                 hfrm: Optional[nn.Module] = None, device=None,
+                 mesh: Optional[DataMesh] = None):
         if cfg.data.wavelet_domain and hfrm is None:
             raise ValueError("the wavelet path requires a frozen HFRM")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.scores = []
         self.unet, self.hfrm = unet, hfrm
         self.betas = torch.as_tensor(get_beta_schedule(
             cfg.diffusion.beta_schedule,
@@ -167,6 +187,7 @@ class DiffusiveRestoration:
                 use_fft=use_fft,
                 use_global=use_global,
                 patch_micro_batch=cfg.sampling.patch_micro_batch,
+                mesh=self.mesh,
                 x0_keep=cfg.sampling.x0_pred_index,
                 **chain)
         if use_global:
@@ -314,7 +335,9 @@ class DiffusiveRestoration:
         the pixel path); when None it is drawn on the device from
         ``generator`` (default: seeded with ``training.seed``), which also
         draws the per-step noise at ``sampling.eta`` > 0 unless
-        ``step_noise`` (T, B, pred, h, w) is given."""
+        ``step_noise`` (T, B, pred, h, w) is given.  Over a patch-parallel
+        mesh every rank calls it with the same images, and x_T and each
+        step's noise are rank 0's."""
         x = torch.as_tensor(cond_pixel, dtype=torch.float32,
                             device=self.device)
         if x.dim() == 3:
@@ -337,6 +360,9 @@ class DiffusiveRestoration:
         elif tuple(noise.shape) != shape:
             raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
         noise = noise.to(device=self.device, dtype=torch.float32)
+        if self.mesh is not None and self.mesh.size > 1:
+            noise = noise.contiguous()
+            self.mesh.broadcast(noise)
         pixels = x.permute(0, 3, 1, 2).contiguous()
         out, aux = fn(pixels, noise, generator, step_noise)
         return out.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
@@ -355,25 +381,36 @@ class DiffusiveRestoration:
     def restore(self, samples: Iterable[Tuple[np.ndarray, str]],
                 save_dir: Optional[str] = None,
                 generator: Optional[torch.Generator] = None,
-                eval_batch: int = 1) -> Dict[str, float]:
+                eval_batch: int = 1, reduce: bool = True) -> Dict[str, float]:
         """Score (pair (H, W, 6) [cond | gt] in [0,1], image_id) samples;
         returns the mean ``psnr_torch``, ``psnr_y``, ``psnr_np_y``,
-        ``ssim`` and ``n_images``.
+        ``ssim`` and ``n_images``, and keeps each image's
+        (id, psnr_torch, psnr_y, psnr_np_y, ssim) in ``self.scores``.
 
         Runs of up to ``eval_batch`` same-geometry pairs restore as one
         batch (a change of geometry flushes the batch), each drawing its
         x_T from ``generator`` (default: seeded with ``training.seed``).
         Metrics are per image, on the host in float64.  With ``save_dir``
         each image writes ``{id}_output.png``, ``{id}_cond.png`` and
-        ``{id}_gt.png`` there.  Single process: multi-GPU reduction is
-        ROADMAP item 13."""
+        ``{id}_gt.png`` there.
+
+        In a process group every rank calls it on its own stripe of the
+        pairs and the means are over all of them: the five sums are
+        all-reduced in float64 (``reduce=False`` scores this process's
+        samples alone, for a call made on one rank).  Only rank 0 writes
+        dumps.  Each rank draws from its own generator seeded with
+        ``training.seed``, as each JAX process does from its own key, so an
+        image's x_T depends on the world size."""
         from wavedm_tpu_torch.utils import metrics as M
         from wavedm_tpu_torch.utils.images import save_image
 
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 self.cfg.training.seed)
+        if process_index() != 0:
+            save_dir = None
         psnr_t, psnr_y, psnr_n, ssims = [], [], [], []
+        self.scores = []
 
         def flush(batch):
             if not batch:
@@ -392,6 +429,8 @@ class DiffusiveRestoration:
                 psnr_y.append(M.psnr_y(gt, out0))
                 psnr_n.append(M.psnr_np(gt255, out255, test_y_channel=True))
                 ssims.append(M.ssim(gt255, out255))
+                self.scores.append((img_id, psnr_t[-1], psnr_y[-1],
+                                    psnr_n[-1], ssims[-1]))
                 if save_dir is not None:
                     save_image(out0, f"{save_dir}/{img_id}_output.png")
                     save_image(cond, f"{save_dir}/{img_id}_cond.png")
@@ -407,11 +446,17 @@ class DiffusiveRestoration:
                 flush(buf)
                 buf = []
         flush(buf)
-        n = max(len(psnr_t), 1)
+        sums = np.array([np.sum(psnr_t), np.sum(psnr_y), np.sum(psnr_n),
+                         np.sum(ssims), len(psnr_t)], np.float64)
+        if reduce and process_count() > 1:
+            total = torch.from_numpy(sums).to(collective_device())
+            dist.all_reduce(total)
+            sums = total.cpu().numpy()
+        n = max(sums[4], 1.0)
         return {
-            "psnr_torch": float(np.sum(psnr_t) / n),
-            "psnr_y": float(np.sum(psnr_y) / n),
-            "psnr_np_y": float(np.sum(psnr_n) / n),
-            "ssim": float(np.sum(ssims) / n),
-            "n_images": len(psnr_t),
+            "psnr_torch": float(sums[0] / n),
+            "psnr_y": float(sums[1] / n),
+            "psnr_np_y": float(sums[2] / n),
+            "ssim": float(sums[3] / n),
+            "n_images": int(sums[4]),
         }

@@ -32,6 +32,14 @@ Differences from JAX, by design:
   with ``rng_seed`` and advanced by each batch's draws, where JAX splits a
   ``PRNGKey`` per batch; the two streams differ, so equal seeds do not give
   equal replies across the packages.
+
+Patch-parallel serving (``cli/serve.py --patch-shard`` under ``torchrun``):
+the restorer's chain is split over the ranks of its mesh.  Rank 0 runs the
+HTTP server; before each batch's chain its device-owner thread broadcasts
+a header (op, B, H, W) and then the batch's pixels, and the other ranks,
+in :meth:`RestorationServer.follow`, join that chain (x_T is rank 0's,
+``inference/restoration.py``).  A stop header ends their loop when rank 0's
+server stops.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 
 from wavedm_tpu_torch.data.raindrop import restore_input
 from wavedm_tpu_torch.inference.restoration import refuse_lap
+from wavedm_tpu_torch.parallel.distributed import collective_device
 from wavedm_tpu_torch.utils.images import decode_png, encode_png
 
 __all__ = ["Microbatcher", "RestorationServer"]
@@ -112,6 +121,9 @@ class Microbatcher:
         return best[:self.batch]
 
 
+_STOP, _RUN = 0, 1      # the ops of a patch-parallel server's header
+
+
 class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 128           # the listen backlog (stdlib: 5)
 
@@ -120,7 +132,13 @@ class RestorationServer:
     """Device-owner loop + HTTP front end around a ``DiffusiveRestoration``
     (``inference/loader.py:build_restorer``), which runs on the card unless
     it was built for another device.  Only the device-owner thread calls the
-    restorer (its per-geometry pipeline cache is not thread-safe)."""
+    restorer (its per-geometry pipeline cache is not thread-safe).  Over a
+    patch-parallel mesh (the restorer's ``mesh``) this is rank 0's server
+    and the other ranks call :meth:`follow`.  A batch that fails on any
+    rank of such a mesh ends the world: the other ranks may be inside the
+    chain's collectives, which cannot be realigned.  A follower raises out
+    of :meth:`follow`; rank 0 fails the batch's requests, stops its device
+    owner and HTTP server and keeps the error in ``failed``."""
 
     def __init__(self, restorer, *, batch: int = 8, window_ms: float = 30.0,
                  no_resize: bool = False, rng_seed: int = 61):
@@ -136,16 +154,73 @@ class RestorationServer:
         if self._device.type == "cuda" and self._device.index is None:
             # the worker thread starts on device 0: pin it to this one's
             self._device = torch.device("cuda", torch.cuda.current_device())
+        mesh = getattr(restorer, "mesh", None)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._followers_released = False
+        self.failed: Optional[BaseException] = None
+        self._httpd: Optional[_HTTPServer] = None
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._device_loop,
                                         daemon=True, name="device-owner")
 
     # ---------------------------------------------------------- device side
 
+    def _header(self, op: int, shape=(0, 0, 0)) -> None:
+        self._mesh.broadcast(torch.tensor([op, *shape], dtype=torch.int64,
+                                          device=collective_device()))
+
+    def _release_followers(self) -> None:
+        if self._mesh is not None and not self._followers_released:
+            self._followers_released = True
+            self._header(_STOP)
+
+    def run_batch(self, stacked: np.ndarray,
+                  generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """Restore one (B, H, W, 3) batch; over a patch-parallel mesh the
+        other ranks are handed the header and the pixels first.  Call it
+        from one thread at a time (the device owner once started)."""
+        if self._mesh is not None:
+            x = torch.as_tensor(stacked, dtype=torch.float32,
+                                device=self._device).contiguous()
+            self._header(_RUN, x.shape[:3])
+            self._mesh.broadcast(x)
+            stacked = x
+        out, _ = self.restorer.restore_image(stacked, generator=generator)
+        return out
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 of a patch-parallel mesh: join
+        every chain rank 0 announces, until it announces the stop.  A
+        chain that fails here raises (see the class)."""
+        gen = torch.Generator(device=self._device).manual_seed(self._seed)
+        while True:
+            head = torch.empty(4, dtype=torch.int64,
+                               device=collective_device())
+            self._mesh.broadcast(head)
+            op, b, h, w = head.tolist()
+            if op == _STOP:
+                return
+            x = torch.empty((b, h, w, 3), dtype=torch.float32,
+                            device=self._device)
+            self._mesh.broadcast(x)
+            self.restorer.restore_image_device(x, generator=gen)
+
     def _device_loop(self) -> None:
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
         gen = torch.Generator(device=self._device).manual_seed(self._seed)
+        try:
+            self._serve_batches(gen)
+        finally:
+            if self.failed is None:
+                self._release_followers()
+            elif self._httpd is not None:
+                # shutdown() waits for serve_forever, which may be this
+                # thread's caller's to return from
+                threading.Thread(target=self._httpd.shutdown,
+                                 daemon=True).start()
+
+    def _serve_batches(self, gen: torch.Generator) -> None:
         while not self._stop.is_set():
             reqs = self.batcher.collect(timeout=0.2)
             if not reqs:
@@ -159,7 +234,7 @@ class RestorationServer:
                 if pad > 0:
                     stacked = np.concatenate(
                         [stacked, np.repeat(stacked[-1:], pad, axis=0)])
-                out, _ = self.restorer.restore_image(stacked, generator=gen)
+                out = self.run_batch(stacked, gen)
                 for r, img in zip(reqs, out[:len(reqs)]):
                     r.out = np.asarray(img)
                 self.stats["served"] += len(reqs)
@@ -167,6 +242,9 @@ class RestorationServer:
                 for r in reqs:
                     r.error = f"{type(e).__name__}: {e}"[:500]
                 self.stats["errors"] += len(reqs)
+                if self._mesh is not None:
+                    self.failed = e
+                    self._stop.set()
             finally:
                 ms = (time.time() - t0) * 1e3
                 self.stats["batches"] += 1
@@ -186,6 +264,9 @@ class RestorationServer:
 
     def restore_bytes(self, body: bytes, timeout: float = 600.0) -> bytes:
         """Decode -> enqueue -> await the device owner -> PNG bytes."""
+        if self.failed is not None:
+            raise RuntimeError(f"the server stopped after a failed batch: "
+                               f"{self.failed}")
         req = _Request(self._decode(body))
         self.batcher.submit(req)
         if not req.done.wait(timeout):
@@ -242,13 +323,17 @@ class RestorationServer:
 
     def stop(self, timeout: Optional[float] = None) -> None:
         """Stop the device-owner loop and join its thread (after the batch
-        it is running, if any)."""
+        it is running, if any); the followers of a patch-parallel mesh are
+        released."""
         self._stop.set()
         if self._worker.is_alive():
             self._worker.join(timeout)
+        elif self._worker.ident is None:      # never started
+            self._release_followers()
 
     def serve(self, host: str = "0.0.0.0", port: int = 8000):
         """Start the device owner; returns the HTTP server (not yet
         serving: call its ``serve_forever``)."""
         self.start()
-        return _HTTPServer((host, port), self.make_handler())
+        self._httpd = _HTTPServer((host, port), self.make_handler())
+        return self._httpd

@@ -22,6 +22,13 @@ Two opt-in terms, dead in the reference, run as JAX runs them:
   0.5 * (mean((D(cond, gt) - 1)**2) + mean(D(cond, fake)**2)).  Its
   weights, moments and step are saved beside the generator's and restored
   on resume.
+
+Under ``torchrun`` (``parallel/distributed.py``) HFRM, and with ``use_gan``
+the discriminator, run as DDP over the data mesh of
+``parallel.data_axis``; each rank steps on its own batches (the global
+batch is ``hfrm.batch_size`` times the number of processes), the logged
+loss and PSNR are means over the ranks, and rank 0 alone writes
+checkpoints and the metrics log.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from wavedm_tpu_torch.models.hfrm import HFRM, identity_center_init_
 from wavedm_tpu_torch.models.vgg_loss import (VGG19Features, perceptual_loss,
                                               vgg19_features_state_dict)
 from wavedm_tpu_torch.models.wdnet import Discriminator
+from wavedm_tpu_torch.parallel.mesh import all_mean, make_mesh, replicate
 from wavedm_tpu_torch.training.state import TrainState
 from wavedm_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from wavedm_tpu_torch.utils.profiling import MetricsLogger, StepTimer
@@ -97,10 +105,12 @@ class HFRMTrainer:
         self.cfg = cfg
         self.log = log_fn
         self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg.parallel.data_axis, self.device)
         with torch.device("meta"):
             model = HFRM.from_config(cfg, keep_f32_params=True)
         self.model = identity_center_init_(
             model.to_empty(device=self.device)).train()
+        self.ddp = replicate(self.model, self.mesh)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"Total_params_model: {n_params / 1e6}M")
         self.state = TrainState(
@@ -128,7 +138,7 @@ class HFRMTrainer:
             self.vgg = vgg.eval().requires_grad_(False)
         # the discriminator's TrainState (its generator unused), and the
         # loss of its last step
-        self.disc_state = self.d_loss = None
+        self.disc_state = self.d_loss = self.disc_ddp = None
         if h.use_gan:
             disc = _random_module(Discriminator, self.device,
                                   cfg.training.seed + 1).train()
@@ -137,11 +147,13 @@ class HFRMTrainer:
                 optimizer=make_hfrm_optimizer(cfg, disc.parameters()),
                 ema={}, step=0, generator=torch.Generator(
                     device=self.device).manual_seed(cfg.training.seed + 1))
+            self.disc_ddp = replicate(disc, self.mesh)
 
     def train_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update on ``batch`` (array or tensor), and one of the
         discriminator with ``use_gan`` (its loss in ``d_loss``); returns
-        the generator's loss and the batch-mean PSNR as device scalars."""
+        the generator's loss and the batch-mean PSNR as device scalars, each
+        a mean over the ranks of a data mesh."""
         h = self.cfg.hfrm
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         x = x.permute(0, 3, 1, 2)
@@ -150,7 +162,7 @@ class HFRMTrainer:
         for group in opt.param_groups:
             group["lr"] = hfrm_lr(h.lr, self.state.step)
         opt.zero_grad(set_to_none=True)
-        fake = self.model(cond)
+        fake = self.ddp(cond)
         loss = 2.0 * torch.mean(torch.abs(fake * 255.0 - gt * 255.0))
         if self.vgg is not None:
             with torch.no_grad():
@@ -158,6 +170,8 @@ class HFRMTrainer:
             loss = loss + perceptual_loss(self.vgg(fake * 255.0), real_feats)
         if h.tv_weight > 0.0:
             loss = loss + tv_loss(fake, h.tv_weight)
+        # the generator's term runs the discriminator itself, not its DDP
+        # wrapper: no gradient of its own flows there
         disc = self.disc_state.model if self.disc_state else None
         if disc is not None:
             disc.requires_grad_(False)
@@ -171,13 +185,16 @@ class HFRMTrainer:
         if disc is not None:
             d_opt = self.disc_state.optimizer
             d_opt.zero_grad(set_to_none=True)
-            d_loss = 0.5 * (torch.mean(torch.square(disc(cond, gt) - 1.0))
-                            + torch.mean(torch.square(disc(cond, fake))))
+            d = self.disc_ddp
+            d_loss = 0.5 * (torch.mean(torch.square(d(cond, gt) - 1.0))
+                            + torch.mean(torch.square(d(cond, fake))))
             d_loss.backward()
             d_opt.step()
             self.disc_state.step += 1
-            self.d_loss = d_loss.detach()
-        return loss.detach(), image_psnr(fake, gt).mean()
+            self.d_loss = all_mean(d_loss.detach(), self.mesh)
+        loss, psnr = all_mean(torch.stack(
+            [loss.detach(), image_psnr(fake, gt).mean()]), self.mesh)
+        return loss, psnr
 
     # ------------------------------------------------------------------ ckpt
 

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from wavedm_tpu_torch.config import OptimConfig
 from wavedm_tpu_torch.diffusion.ema import ema_init
+from wavedm_tpu_torch.parallel.mesh import unwrap
 
 __all__ = ["TrainState", "make_optimizer", "create_train_state"]
 
@@ -27,7 +28,8 @@ __all__ = ["TrainState", "make_optimizer", "create_train_state"]
 class TrainState:
     """What a train step updates in place: the model's parameters, the
     optimizer's moments, the EMA shadow, the step count and the generator
-    that draws t and the noise."""
+    that draws t and the noise.  ``model`` is the module itself, never its
+    DDP wrapper, so its names are a world-one run's."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     ema: Dict[str, torch.Tensor]
@@ -55,7 +57,10 @@ def create_train_state(model: nn.Module, optim: OptimConfig,
                        seed: int) -> TrainState:
     """Optimizer over the model's trainable parameters, EMA shadow as a
     copy of them, step 0, and a generator on the model's device seeded with
-    ``seed``."""
+    ``seed``.  A DDP-wrapped ``model`` gives the state its inner module,
+    whose names the EMA and the checkpoints keep; under FSDP the
+    parameters, and so the moments and the shadow, are DTensor shards."""
+    model = unwrap(model)
     device = next(model.parameters()).device
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     return TrainState(

@@ -22,6 +22,15 @@ layout) and run as NCHW inside.  The domains:
 As in JAX, the reported loss per pixel divides by ``pred_channels *
 image_size**2`` on every domain, on the Laplacian one too, where the loss
 lives on a level 4x smaller on each side.
+
+Over a data mesh (``parallel/mesh.py``) the model is DDP- or FSDP-wrapped
+and each rank steps on its slice of the global batch: every rank draws t
+and the noise for the whole global batch from its generator (seeded alike
+on every rank) and keeps its own slice, so the generators stay equal and a
+world of N on a global batch steps as a world of one on it (JAX draws over
+the global batch inside its jitted step).  DDP's backward averages the
+gradients; the gradient norm is the global gradient's and the reported
+losses are means over the ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from wavedm_tpu_torch.diffusion.schedules import get_beta_schedule
 from wavedm_tpu_torch.inference.restoration import (data_transform,
                                                     inverse_data_transform)
 from wavedm_tpu_torch.ops.wavelet import wavelet_dec
+from wavedm_tpu_torch.parallel.mesh import (DataMesh, all_mean, grad_norm,
+                                            grad_sync, unwrap)
 from wavedm_tpu_torch.training.state import TrainState
 
 __all__ = ["data_transform", "inverse_data_transform", "prepare_pixel_batch",
@@ -104,7 +115,8 @@ class StepMetrics(NamedTuple):
 
 
 def make_train_step(cfg: Config, model: nn.Module,
-                    hfrm: Optional[nn.Module] = None) -> Callable:
+                    hfrm: Optional[nn.Module] = None,
+                    mesh: Optional[DataMesh] = None) -> Callable:
     """The step for the config's domain.
 
     ``step(state, batch, t=None, e=None) -> StepMetrics``; on the global
@@ -117,7 +129,13 @@ def make_train_step(cfg: Config, model: nn.Module,
     diffusion domain's geometry; each is drawn from ``state.generator`` when
     not given.  ``training.grad_accum`` > 1 splits the batch into that many
     micro-batches and averages their gradients into one update (not on the
-    global and Laplacian domains, as in JAX)."""
+    global and Laplacian domains, as in JAX).
+
+    ``model`` may be wrapped for the ``mesh`` (``replicate`` or
+    ``fsdp_shard``); ``batch`` is then this rank's slice and ``t`` and ``e``,
+    when given, cover the global batch (this rank's slice times the mesh
+    size), of which each rank keeps its own part.  The Laplacian domain
+    runs on one process only."""
     m, d = cfg.model, cfg.data
     device = next(model.parameters()).device
     betas = torch.as_tensor(get_beta_schedule(
@@ -137,6 +155,10 @@ def make_train_step(cfg: Config, model: nn.Module,
         raise ValueError("training.grad_accum > 1 is not supported with "
                          "global_attn or the lap path")
     mu = m.ema_rate
+    size = 1 if mesh is None else mesh.size
+    if d.lap and size > 1:
+        raise ValueError("the Laplacian domain trains on one process; its "
+                         "translator is not replicated over a data mesh")
 
     def loss_fn(x, t, e, x_global):
         fn = model if x_global is None else (
@@ -159,10 +181,15 @@ def make_train_step(cfg: Config, model: nn.Module,
             raise ValueError(
                 f"batch of {n} crops not divisible by grad_accum={accum}")
         if t is None:
-            t = antithetic_timesteps(state.generator, n, num_timesteps)
+            t = antithetic_timesteps(state.generator, n * size, num_timesteps)
         if e is None:
-            e = torch.randn((n, m.pred_channels) + tuple(x.shape[2:]),
+            e = torch.randn((n * size, m.pred_channels) + tuple(x.shape[2:]),
                             generator=state.generator, device=device)
+        if size > 1:
+            if len(t) != n * size or len(e) != n * size:
+                raise ValueError(f"t and e cover the global batch of "
+                                 f"{n * size}, got {len(t)} and {len(e)}")
+            t, e = (v[mesh.rank * n:(mesh.rank + 1) * n] for v in (t, e))
         t, e = t.to(device), e.to(device=device, dtype=torch.float32)
 
         model.train()
@@ -171,23 +198,27 @@ def make_train_step(cfg: Config, model: nn.Module,
         mb = n // accum
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
-            out = loss_fn(x[sl], t[sl], e[sl], x_global)
-            main = out.mse_loss if cfg.training.use_mse else out.simple_loss
-            (main / accum).backward()
+            # over a mesh the gradients are averaged on the last pass only
+            with grad_sync(model, i == accum - 1):
+                out = loss_fn(x[sl], t[sl], e[sl], x_global)
+                main = (out.mse_loss if cfg.training.use_mse
+                        else out.simple_loss)
+                (main / accum).backward()
             # micro losses are means over equal micro-batches
             simple = simple + out.simple_loss.detach() / accum
             mse = mse + out.mse_loss.detach() / accum
 
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        gnorm = grad_norm([p.grad for p in model.parameters()
+                           if p.grad is not None])
         state.optimizer.step()
-        ema_update(state.ema, [(k, p) for k, p in model.named_parameters()
+        ema_update(state.ema, [(k, p) for k, p in
+                               unwrap(model).named_parameters()
                                if k in state.ema], mu)
         state.step += 1
+        simple, mse = all_mean(torch.stack([simple, mse]), mesh)
         return StepMetrics(loss=simple, mse_loss=mse,
                            loss_per_pixel=simple / num_of_pixel,
-                           grad_norm=grad_norm, loss_trans=loss_trans)
+                           grad_norm=gnorm, loss_trans=loss_trans)
 
     if d.lap:
         from wavedm_tpu_torch.models.laplacian import LaplacianPyramid

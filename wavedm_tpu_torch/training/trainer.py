@@ -9,7 +9,16 @@ domain of ``training/train_step.py``: with ``data.global_attn`` the UNet is
 the high-frequency translator co-trains (``training/lap.py``), its LR set
 once per epoch, and its parameters and Adam moments are checkpointed beside
 the UNet's, as JAX checkpoints them (the original reference does not).
-Single process.
+
+Under ``torchrun`` (``parallel/distributed.py``) the trainer builds the
+data mesh from ``parallel.data_axis`` as JAX does, wraps the UNet in DDP
+and steps each rank on the batches its own loader yields: the global batch
+is the per-process batch times the number of processes, JAX's
+multi-process rule and the reference's DistributedSampler's.  Rank 0 alone
+validates, writes checkpoints and the metrics log.  ``parallel.fsdp`` is
+not read, as JAX's trainer does not read it (FSDP is
+``parallel/mesh.py:fsdp_shard``).  The Laplacian domain trains on one
+process.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import torch
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.inference.loader import (Weights, build_hfrm,
                                                build_unet, resolve_device)
+from wavedm_tpu_torch.parallel.distributed import is_coordinator
+from wavedm_tpu_torch.parallel.mesh import make_mesh, replicate
 from wavedm_tpu_torch.training.lap import create_lap_state, lap_lr_for_epoch
 from wavedm_tpu_torch.training.state import TrainState, create_train_state
 from wavedm_tpu_torch.training.train_step import make_train_step
@@ -61,9 +72,12 @@ class DiffusionTrainer:
         self.cfg = cfg
         self.log = log_fn
         self.device = resolve_device(device)
+        self.mesh = make_mesh(cfg.parallel.data_axis, self.device)
         self.model = build_unet(cfg, None, self.device, train=True)
         n_params = sum(p.numel() for p in self.model.parameters())
         self.log(f"Total_params_model_real: {n_params / 1e6}M")
+        # the step runs the DDP wrapper; the state keeps the module itself
+        self.ddp = replicate(self.model, self.mesh)
         self.state = create_train_state(self.model, cfg.optim,
                                         cfg.training.seed)
         self.epoch = 0
@@ -79,7 +93,8 @@ class DiffusionTrainer:
                     "use_gt_in_train=False requires frozen HFRM weights "
                     "(cfg.hfrm.ckpt_path or hfrm_state_dict=)")
             self.hfrm = build_hfrm(cfg, hfrm_state_dict, self.device)
-        self.train_step = make_train_step(cfg, self.model, self.hfrm)
+        self.train_step = make_train_step(cfg, self.ddp, self.hfrm,
+                                          self.mesh)
 
     # ------------------------------------------------------------------ ckpt
 
@@ -114,9 +129,10 @@ class DiffusionTrainer:
         batch_iter_fn(epoch) -> iterable of (B, P, P, 6) float32 batches in
         [0, 1] ((crops, totals) pairs with ``data.global_attn``).
         metrics_path: optional JSONL file that receives each
-        logged step's metrics.  validate_fn(state, step): the in-train
-        validation hook, called after each step that is a multiple of
-        ``training.validation_freq``, before that step's snapshot."""
+        logged step's metrics (rank 0 writes it).  validate_fn(state,
+        step): the in-train validation hook, called on rank 0 after each
+        step that is a multiple of ``training.validation_freq``, before that
+        step's snapshot."""
         cfg = self.cfg
         history: List[TrainLogEntry] = []
         stop_at = (min(max_steps, cfg.training.n_iters)
@@ -163,7 +179,7 @@ class DiffusionTrainer:
                                  grad_norm=float(m.grad_norm),
                                  step_time=entry.step_time,
                                  data_time=entry.data_time)
-                if (validate_fn is not None
+                if (validate_fn is not None and is_coordinator()
                         and step % cfg.training.validation_freq == 0):
                     validate_fn(self.state, step)
                 if ckpt_dir and (step % cfg.training.snapshot_freq == 0

@@ -1,10 +1,12 @@
-"""Single-flight lock for the local CUDA card.
+"""Single-flight lock for each local CUDA card.
 
 The port's counterpart of ``wavedm_tpu/utils/tpu_lock.py``: every entry
 point that runs on the card (the ``serve``, ``restore``, ``eval_diffusion``,
 ``train_diffusion`` and ``train_hfrm`` CLIs) takes this advisory ``flock``
-before it builds anything there, so two of them never share the card by
-accident:
+before it builds anything there, so two of them never share a card by
+accident.  There is one lock a card, keyed by the device's index: the
+ranks of a ``torchrun`` world each take their own card's, so none waits on
+another's while that one waits for it in the rendezvous.
 
 * the CLIs block until the card is free, printing the holder's note every
   minute;
@@ -17,8 +19,9 @@ The lock is taken only when the resolved device is CUDA: runs on the CPU
 (the tests) never contend for it.  It is re-entrant per process (later
 calls return True at once) and held until the process exits.
 
-Env knobs: ``WAVEDM_GPU_LOCK`` (path, default ``wavedm_gpu.lock`` in the
-temporary directory), ``WAVEDM_GPU_LOCK_DISABLE=1`` (skip entirely).
+Env knobs: ``WAVEDM_GPU_LOCK`` (card 0's path, default ``wavedm_gpu.lock``
+in the temporary directory; card k's is that path with ``.k`` appended),
+``WAVEDM_GPU_LOCK_DISABLE=1`` (skip entirely).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import sys
 import tempfile
 import time
 
+import torch
+
 from wavedm_tpu_torch.utils.device import resolve_device
 
 __all__ = ["lock_path", "acquire_gpu_lock", "release_gpu_lock"]
@@ -37,10 +42,18 @@ __all__ = ["lock_path", "acquire_gpu_lock", "release_gpu_lock"]
 _held = {}  # path -> open fd (kept for the process's lifetime)
 
 
-def lock_path() -> str:
-    return os.environ.get("WAVEDM_GPU_LOCK",
+def lock_path(index: int = 0) -> str:
+    """The lock file of card ``index``."""
+    base = os.environ.get("WAVEDM_GPU_LOCK",
                           os.path.join(tempfile.gettempdir(),
                                        "wavedm_gpu.lock"))
+    return base if index == 0 else f"{base}.{index}"
+
+
+def _card_index(device: torch.device) -> int:
+    if device.index is not None:
+        return device.index
+    return torch.cuda.current_device() if torch.cuda.is_available() else 0
 
 
 def _holder_note(path: str) -> str:
@@ -53,18 +66,19 @@ def _holder_note(path: str) -> str:
 
 def acquire_gpu_lock(name: str, device=None, timeout: float | None = None,
                      poll: float = 5.0, verbose: bool = True) -> bool:
-    """Take the card's lock for ``device`` (the card when None; raises, as
-    ``resolve_device`` does, when there is none) and hold it until the
-    process exits.
+    """Take the lock of the card ``device`` names (the card when None, the
+    current one for a bare ``cuda``; raises, as ``resolve_device`` does,
+    when there is none) and hold it until the process exits.
 
     A device that is not CUDA takes no lock and returns True.  Blocks up
     to ``timeout`` seconds (``None`` = for ever); returns True when
     acquired, False on timeout."""
-    if resolve_device(device).type != "cuda":
+    device = resolve_device(device)
+    if device.type != "cuda":
         return True
     if os.environ.get("WAVEDM_GPU_LOCK_DISABLE") == "1":
         return True
-    path = lock_path()
+    path = lock_path(_card_index(device))
     if path in _held:
         return True
     fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o666)

@@ -12,6 +12,8 @@ from typing import Dict, Optional
 
 import torch
 
+from wavedm_tpu_torch.parallel.distributed import is_coordinator
+
 __all__ = ["StepTimer", "MetricsLogger"]
 
 
@@ -41,13 +43,18 @@ class StepTimer:
 
 class MetricsLogger:
     """Append-only JSONL metrics log: one {"step", "time", **metrics}
-    object a line."""
+    object a line, written by rank 0 alone (a no-op on the other ranks of a
+    process group, as JAX's is on processes other than 0)."""
 
     def __init__(self, path: str):
         self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.enabled = is_coordinator()
+        if self.enabled:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def log(self, step: int, **metrics: float) -> None:
+        if not self.enabled:
+            return
         rec: Dict = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as f:
