@@ -8,6 +8,16 @@ Phases, each printing one JSON line with its elapsed seconds:
   card              the card's name and power limit; TF32 off for float32
   build             nvcc builds wavedm_tpu_torch/csrc/*.cu into one library
                     (one process per source); ptxas registers and spills
+  native            beside nvcc, the host C++ compiler builds the data
+                    library (wavedm_tpu_torch/native/wavedm_data.cc: JPEG
+                    and PNG decode, the native crop stream) where it finds
+                    jpeglib.h, png.h and zlib.h: the compiler, the headers
+                    found, the build seconds, ``available`` (and, when not,
+                    why); the JPEG and native-stream checks below run only
+                    where it is available
+  profiling         ``utils/profiling.trace`` and ``annotate`` around one
+                    DWT kernel call: the trace file holds the annotated
+                    region; its device kernel events are counted
   kernels           every CUDA kernel of the paths against its plain PyTorch
                     version at the main paths' shapes, timed beside the plain
                     version, one PyTorch library call and its bound; the
@@ -49,10 +59,16 @@ Phases, each printing one JSON line with its elapsed seconds:
                     N = 360 patches); restore_image_device
                     on 8 images through ``fused_groupnorm`` and
                     ``fused_resblock``; then a RestorationServer on
-                    127.0.0.1 answers 16 concurrent 720x480 PNG requests in
-                    2 batches (each reply within one uint8 level of a direct
-                    restore of the same batch), a lone request and a bad
-                    one; latency, host decode/encode ms, peak memory
+                    127.0.0.1 answers 16 concurrent 720x480 requests in 2
+                    batches (each reply within one uint8 level of a direct
+                    restore of the same batch): 14 synthetic PNGs, the
+                    committed palette PNG of RainDrop test image 0000 and
+                    its committed JPEG (a 15th PNG where the data library
+                    is unavailable, and the JPEG then gets a 500 naming
+                    why), each decoded on the card's host equal to PIL's
+                    committed decode; a lone request and a bad one;
+                    latency, host decode (PNG, palette PNG, JPEG) and
+                    encode ms, peak memory
   train_parity      one train step of a small UNet on the card against the
                     same step on the CPU
   train             DiffusionTrainer.fit at flagship width with
@@ -65,10 +81,14 @@ Phases, each printing one JSON line with its elapsed seconds:
                     289 MB train split, which a copy of the repository made
                     for a GPU machine may leave out), the
                     production profile with ``fused_resblock``: 6 steps
-                    streamed from the PNG files and 6 through the device
-                    crop cache (first batches equal to the byte), in-train
-                    validation once; ms/step, data wait, peak memory,
-                    launch counts
+                    streamed from the PNG files in the PIL order and 6
+                    through the device crop cache (first batches equal to
+                    the byte), in-train validation once, then 3 on the
+                    native crop stream (its first batch equal to
+                    ``make_crop_batch`` called directly, and the stream
+                    ``train_batches`` picks by default) where the data
+                    library is available; ms/step, data wait, peak
+                    memory, launch counts
   train_hfrm        one small HFRM train step on the card against the CPU;
                     then HFRMTrainer at full width on the 8 test pairs
                     (whole 720x480 images, batch 8) for 4 steps in float32,
@@ -669,6 +689,39 @@ def check_fused_kernels(cfg):
     return rows
 
 
+def profiling_phase():
+    """``utils/profiling.trace`` with ``annotate`` around one DWT kernel
+    call on two 720x480 images: the Chrome trace must hold the annotated
+    region; how many of its events are device kernels says whether
+    torch.profiler's CUPTI tracing sees the card on this machine."""
+    import torch
+
+    from wavedm_tpu_torch.ops.wavelet_cuda import wavelet_dec_cuda
+    from wavedm_tpu_torch.utils.profiling import annotate, trace
+
+    log_dir = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_trace")
+    x = torch.rand(N_IMAGES, 3, HEIGHT, WIDTH, device="cuda")
+    wavelet_dec_cuda(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with trace(log_dir):
+        with annotate("smoke_wavelet_dec"):
+            wavelet_dec_cuda(x)
+        torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t
+    try:
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    names = {e.get("name") for e in events}
+    assert "smoke_wavelet_dec" in names, "no annotated region in the trace"
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    emit("profiling", trace_s=trace_s, events=len(events),
+         device_kernel_events=sum(e.get("cat") == "kernel" for e in events),
+         device_kernels=kernels[:6])
+
+
 def synthetic_images(seed, n=N_IMAGES):
     """``n`` rain-degraded-looking (n, H, W, 3) images in [0, 1]: a smooth
     colour field with bright, blurred drops and sensor noise, from numpy."""
@@ -1039,11 +1092,15 @@ def serve_phase(launches):
     after a warmup, with a 500 ms window: the 16 handler threads decode
     their PNGs under one interpreter lock (~10 ms each), so a 30-50 ms
     window would split the burst by timing alone.  16 concurrent 720x480
-    PNG requests must come back in 2 batches, each reply within one uint8
-    level of the restorer called directly on the same padded batch with a
-    generator seeded as the server's; a lone request (padded 1 -> 8) is
-    timed beside ``restore_image`` at batch 1; a body that is not a PNG
-    gets a 500 and the next request a 200.  The launches of the 4 served
+    requests (14 synthetic PNGs, RainDrop test image 0000 as the committed
+    palette PNG and as the committed JPEG, each decoded here equal to
+    PIL's committed decode; a 15th PNG in the JPEG's place where the data
+    library is unavailable) must come back in 2 batches, each reply within
+    one uint8 level of the restorer called directly on the same padded
+    batch with a generator seeded as the server's; a lone request (padded
+    1 -> 8) is timed beside ``restore_image`` at batch 1; a body that is
+    not an image gets a 500 (and the JPEG too, without the data library)
+    and the next request a 200.  The launches of the 4 served
     batches are counted.  Every client call has a timeout; the server is
     stopped and its threads joined before the checks."""
     import threading
@@ -1054,9 +1111,11 @@ def serve_phase(launches):
     import torch
 
     from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.data import native_loader
     from wavedm_tpu_torch.inference.loader import build_restorer
     from wavedm_tpu_torch.inference.server import RestorationServer
-    from wavedm_tpu_torch.utils.images import decode_png, encode_png, to_uint8
+    from wavedm_tpu_torch.utils.images import (decode_image, decode_png,
+                                               encode_png, to_uint8)
 
     def restorer(**parallel):
         cfg = production_profile()
@@ -1143,6 +1202,31 @@ def serve_phase(launches):
     for png in pngs:
         srv._decode(png)
     decode_ms = (time.perf_counter() - t) * 1e3 / SERVE_BURST
+    # two of the burst's requests are RainDrop test image 0000 as the
+    # committed palette PNG and JPEG, each decoded here equal to PIL's
+    # committed decode; where the data library is unavailable a 15th
+    # synthetic PNG takes the JPEG's place, and the JPEG gets a 500
+    golden = os.path.join(ROOT, "tests", "golden", "images")
+    pil = np.load(os.path.join(golden, "decodes.npz"))
+    encoded = {}
+    for name in ("raindrop_0000_palette.png", "raindrop_0000.jpg"):
+        with open(os.path.join(golden, name), "rb") as f:
+            encoded[name] = f.read()
+    jpeg_ok = native_loader.available()
+    formats = ["raindrop_0000_palette.png"] + (
+        ["raindrop_0000.jpg"] if jpeg_ok else [])
+    format_ms, bodies = {}, pngs[:SERVE_BURST - len(formats)]
+    for name in formats:
+        img = decode_image(encoded[name], name)
+        assert np.array_equal(img, pil[name]), name
+        t = time.perf_counter()             # as the PNGs' time: _decode
+        for _ in range(3):
+            srv._decode(encoded[name])
+        format_ms[name] = (time.perf_counter() - t) * 1e3 / 3
+        bodies.append(encoded[name])
+    # what the server restores from each request: the burst's, the lone
+    # request's and the survivor's
+    sources = [srv._decode(body) for body in bodies + pngs[:2]]
     t = time.perf_counter()
     rest.restore_image(np.zeros((SERVE_BATCH, HEIGHT, WIDTH, 3), np.float32))
     warmup_s = time.perf_counter() - t
@@ -1177,7 +1261,7 @@ def serve_phase(launches):
 
     def client(i):
         try:
-            results[i] = post(pngs[i])
+            results[i] = post(bodies[i])
         except Exception as e:  # noqa: BLE001 -- reported below
             failures.append(f"request {i}: {type(e).__name__}: {e}")
 
@@ -1215,7 +1299,16 @@ def serve_phase(launches):
             raise AssertionError("a body that is not a PNG got a 200")
         except urllib.error.HTTPError as e:
             bad = e.code, e.read().decode()[:200]
-        assert bad[0] == 500 and "only PNG" in bad[1], bad
+        assert bad[0] == 500 and "not a PNG, JPEG or BMP" in bad[1], bad
+        jpeg_refused = None
+        if not jpeg_ok:
+            try:
+                post(encoded["raindrop_0000.jpg"], timeout=60)
+                raise AssertionError("a JPEG got a 200 without the library")
+            except urllib.error.HTTPError as e:
+                jpeg_refused = e.code, e.read().decode()[:400]
+            assert jpeg_refused[0] == 500 and "unavailable" in \
+                jpeg_refused[1], jpeg_refused
         status, body, survivor_ms = post(pngs[1])
         assert status == 200, status
         replies.append(decode_png(body, "reply"))
@@ -1251,11 +1344,9 @@ def serve_phase(launches):
         out, _ = rest.restore_image(batch, generator=gen)
         expect.append((batch, np.clip(out * 255.0 + 0.5, 0, 255)
                        .astype(np.uint8)))
-    sources = list(burst) + [burst[0], burst[1]]
     spans = [(0, 2)] * SERVE_BURST + [(2, 3), (3, 4)]
     worst = 0
     for reply, src, (lo, hi) in zip(replies, sources, spans):
-        src = src.astype(np.float32) / 255.0
         rows = [(b, k) for b in range(lo, hi)
                 for k in range(SERVE_BATCH)
                 if np.array_equal(expect[b][0][k], src)]
@@ -1290,6 +1381,8 @@ def serve_phase(launches):
          latency_ms=lat, lone_request_ms=lone_ms,
          restore_image_batch1_ms=batch1_ms, survivor_ms=survivor_ms,
          host_decode_ms_per_request=decode_ms,
+         host_decode_ms_by_file={"synthetic_png": decode_ms, **format_ms},
+         burst_formats=formats, jpeg_refused=jpeg_refused,
          host_encode_ms_per_request=encode_ms, warmup_s=warmup_s,
          peak_bytes=peak, max_uint8_diff_vs_direct=worst,
          bad_request=bad[0], launches=got, healthz=final)
@@ -1603,17 +1696,23 @@ def timed_batches(it, waits):
 
 
 DATA_STEPS = 6
+NATIVE_STEPS = 3
 
 
 def train_data_phase(launches):
     """Stage 2 on real RainDrop pairs in the production profile (bfloat16
     compute, float32 parameters, ``fused_resblock``, a frozen random
-    HFRM, 2 x 8 crops of 256x256): 6 steps streamed from the PNG files,
-    then 6 from a fresh trainer through the device cache; the first batch
-    of each path equal to the byte.  ``training.validation_freq`` is 3 and
-    the streamed run validates once, at step 3 (two test pairs restored
-    with the training UNet).  Times steps 2-6: wall per step (validation
-    taken out), the card's step alone, and the host's wait for a batch."""
+    HFRM, 2 x 8 crops of 256x256): 6 steps streamed from the PNG files in
+    the PIL order (``use_native=False``), then 6 from a fresh trainer
+    through the device cache, the first batch of each path equal to the
+    byte; then, where the data library is available, 3 on the native crop
+    stream, whose first batch must equal ``make_crop_batch`` called
+    directly and be what ``train_batches`` gives by default (where it is
+    not, the default must be the PIL-order stream).
+    ``training.validation_freq`` is 3 and the streamed run validates once,
+    at step 3 (two test pairs restored with the training UNet).  Times the
+    steps after the first: wall per step (validation taken out), the
+    card's step alone, and the host's wait for a batch."""
     import contextlib
     import io
 
@@ -1622,7 +1721,8 @@ def train_data_phase(launches):
 
     from wavedm_tpu_torch.cli.train_diffusion import make_validate
     from wavedm_tpu_torch.config import production_profile
-    from wavedm_tpu_torch.data.raindrop import RainDrop
+    from wavedm_tpu_torch.data import native_loader
+    from wavedm_tpu_torch.data.raindrop import RainDrop, RainDropDataset
     from wavedm_tpu_torch.inference.loader import build_hfrm
     from wavedm_tpu_torch.training.trainer import DiffusionTrainer
 
@@ -1639,13 +1739,18 @@ def train_data_phase(launches):
         1, cfg.sampling.t_start // cfg.sampling.sampling_timesteps)))
     m = cfg.model      # two fused sites a ResnetBlock: 44 at full width
     sites = 2 * (len(m.ch_mult) * (2 * m.num_res_blocks + 1) + 2)
+    native_ok = native_loader.available()
+    paths = ["streamed", "device_cache"] + (["native"] if native_ok else [])
     firsts = {}
     try:
-        for path in ("streamed", "device_cache"):
+        for path in paths:
             cfg.data.device_cache = path == "device_cache"
+            use_native = path == "native"
+            steps = NATIVE_STEPS if use_native else DATA_STEPS
             dataset = RainDrop(cfg, device="cuda")
             t = time.perf_counter()
-            first = next(dataset.train_batches(0, prefetch=False))
+            first = next(dataset.train_batches(0, prefetch=False,
+                                               use_native=use_native))
             torch.cuda.synchronize()
             first_batch_s = time.perf_counter() - t   # the cache's build
             firsts[path] = (first.cpu().numpy() if torch.is_tensor(first)
@@ -1675,16 +1780,17 @@ def train_data_phase(launches):
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             trainer.fit(lambda epoch: timed_batches(
-                dataset.train_batches(epoch), waits), max_steps=DATA_STEPS,
+                dataset.train_batches(epoch, use_native=use_native), waits),
+                max_steps=steps,
                 validate_fn=once if path == "streamed" else None)
             torch.cuda.synchronize()
             counts = read_counts()
             peak = torch.cuda.max_memory_allocated()
-            assert trainer.state.step == DATA_STEPS
+            assert trainer.state.step == steps
             restores = 2 if path == "streamed" else 0    # eval_batch 1
             want = {"fused_gn_swish_conv_bf16":
-                    sites * (DATA_STEPS + chain * restores),
-                    "wavelet_dec": 3 * DATA_STEPS + 2 * restores}
+                    sites * (steps + chain * restores),
+                    "wavelet_dec": 3 * steps + 2 * restores}
             if restores:
                 want["wavelet_rec"] = restores
             got = {k: v for k, v in counts.items() if v}
@@ -1693,8 +1799,8 @@ def train_data_phase(launches):
                 launches[key] += val
             loss = float(metrics[-1].loss)
             assert np.isfinite(loss), loss
-            wall_ms = ((marks[DATA_STEPS - 1] - marks[0]) - sum(val_s)) \
-                * 1e3 / (DATA_STEPS - 1)
+            wall_ms = ((marks[steps - 1] - marks[0]) - sum(val_s)) \
+                * 1e3 / (steps - 1)
             fields = {}
             if val_out:
                 psnr, ssim = re.search(r"psnr (\S+) ssim (\S+)",
@@ -1706,12 +1812,12 @@ def train_data_phase(launches):
                               validation_dumps=len(dumps))
             emit("train_data", path=path, profile="production",
                  dtype="bfloat16", fused_resblock=True, crops=n_crops,
-                 steps=DATA_STEPS,
+                 steps=steps,
                  first_batch_s_cache_build_included=first_batch_s,
                  first_step_ms=step_ms[0],
                  ms_per_step=wall_ms,
-                 step_ms=sum(step_ms[1:]) / (DATA_STEPS - 1),
-                 data_ms=sum(waits[1:DATA_STEPS]) * 1e3 / (DATA_STEPS - 1),
+                 step_ms=sum(step_ms[1:]) / (steps - 1),
+                 data_ms=sum(waits[1:steps]) * 1e3 / (steps - 1),
                  peak_bytes=peak, loss=loss, launches=got,
                  group_norm_launches=sum(v for k, v in got.items()
                                          if k.startswith("group_norm")),
@@ -1721,8 +1827,31 @@ def train_data_phase(launches):
     finally:
         shutil.rmtree(val_dir, ignore_errors=True)
     assert np.array_equal(firsts["streamed"], firsts["device_cache"])
+    # which stream train_batches takes by default, and the native one's
+    # first batch against the library called directly on the same pairs
+    cfg.data.device_cache = False
+    default = next(RainDrop(cfg).train_batches(0, prefetch=False))
+    native = {"available": native_ok,
+              "reason": native_loader.unavailable_reason()}
+    if native_ok:
+        ds = RainDropDataset(RainDrop(cfg).train_dir(), cfg.data.patch_size,
+                             cfg.training.patch_n)
+        order = np.array(ds.indices)
+        np.random.default_rng(cfg.training.seed).shuffle(order)
+        bs = cfg.training.batch_size
+        direct = native_loader.make_crop_batch(
+            [ds.inputs[i] for i in order[:bs]],
+            [ds.gts[i] for i in order[:bs]], cfg.training.patch_n,
+            cfg.data.patch_size, cfg.training.seed * 100003 * 1000003,
+            cfg.data.num_workers)
+        assert np.array_equal(firsts["native"], direct)
+        assert np.array_equal(default, direct)
+        native["first_batch_equals_make_crop_batch"] = True
+    else:
+        assert np.array_equal(default, firsts["streamed"])
+    native["default_stream"] = "native" if native_ok else "streamed"
     emit("train_data", first_batches_equal=True,
-         batch_shape=list(firsts["streamed"].shape))
+         batch_shape=list(firsts["streamed"].shape), native_stream=native)
 
 
 HFRM_STEPS = 4         # cut from 6 for the 5-minute cap
@@ -3304,9 +3433,13 @@ def main(argv=None):
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
-    # nvcc's processes run beside the start-up below
-    pool = ThreadPoolExecutor(1)
+    from wavedm_tpu_torch.native import build as native_build
+
+    # nvcc's processes, and the host compiler's build of the data library,
+    # run beside the start-up below
+    pool = ThreadPoolExecutor(2)
     built = pool.submit(_build.build)
+    native = pool.submit(native_build.status)
     pool.shutdown(wait=False)
     from wavedm_tpu_torch.config import production_profile, reference_profile
     from wavedm_tpu_torch.inference.loader import build_hfrm, build_restorer
@@ -3328,6 +3461,8 @@ def main(argv=None):
     emit("build", waited_s=time.perf_counter() - t,
          nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
          ptxas=ptxas_report(_build.last_ptxas))
+    emit("native", **native.result())
+    profiling_phase()
 
     ref_cfg = reference_profile()
     prod_cfg = production_profile()

@@ -3,9 +3,12 @@
 The RainDrop training crops (streamed and through the device cache), the
 paired-folder batches and PIL's BILINEAR resample are held to the JAX
 package's PIL path bit for bit, over PNG pairs written into a temporary
-tree.  The JAX package's native C++ decoder is switched off in these
-tests (its library may be built in the tree), as the port follows the PIL
-path.  PIL is imported by the tests only.
+tree.  Both packages' native crop streams are switched off in these
+tests (the JAX package's library is built in the tree, and the port's
+builds wherever libjpeg's and libpng's headers are): they hold the PIL
+path, which the device caches follow.  The native streams are held to
+each other in ``tests/test_torch_native_loader.py``.  PIL is imported by
+the tests only.
 """
 
 import os
@@ -45,6 +48,7 @@ def one_torch_thread():
 @pytest.fixture(autouse=True)
 def no_native_decoder(monkeypatch):
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(raindrop.native_loader, "available", lambda: False)
 
 
 def _write_pairs(root, n, h=H, w=W, seed=0):

@@ -238,9 +238,13 @@ def test_eval_cli_refuses_an_orbax_directory(tmp_path):
 
 
 def test_restore_cli_in_process(tmp_path):
-    """Three 48x64 PNGs at native geometry in batches of two, from the
-    port's own checkpoint (EMA) and a reference-style HFRM file: the
-    outputs are the restorer's own images for that generator."""
+    """Three 48x64 images at native geometry in batches of two, a PNG, a
+    JPEG and a BMP, from the port's own checkpoint (EMA) and a
+    reference-style HFRM file: the outputs are the restorer's own images
+    of PIL's decodes for that generator.  A WebP beside them is not
+    listed."""
+    from PIL import Image
+
     cfg_path = tmp_path / "mini.yaml"
     cfg_path.write_text(
         "data: {image_size: 8, patch_size: 32}\n"
@@ -262,8 +266,11 @@ def test_restore_cli_in_process(tmp_path):
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
             for _ in range(3)]
-    for i, img in enumerate(imgs):
-        write_png(str(ind / f"img{i}.png"), img)
+    write_png(str(ind / "img0.png"), imgs[0])
+    Image.fromarray(imgs[1]).save(str(ind / "img1.jpg"), quality=90)
+    Image.fromarray(imgs[2]).save(str(ind / "img2.bmp"))
+    Image.fromarray(imgs[2]).save(str(ind / "img3.webp"))
+    imgs[1] = np.asarray(Image.open(str(ind / "img1.jpg")).convert("RGB"))
     (ind / "notes.txt").write_text("not an image")
 
     assert restore_cli.main([
@@ -286,11 +293,38 @@ def test_restore_cli_in_process(tmp_path):
 
 
 def test_restore_cli_refuses_other_formats(tmp_path):
+    """A file of a format the port does not read, named by its path, is
+    refused naming the format (a directory does not list it)."""
     from PIL import Image
 
-    path = str(tmp_path / "photo.jpg")
+    path = str(tmp_path / "photo.webp")
     Image.fromarray(np.zeros((48, 64, 3), np.uint8)).save(path)
-    with pytest.raises(ValueError, match="not a PNG"):
+    with pytest.raises(ValueError, match="WebP is not supported") as err:
         restore_cli.main(["--config", "production", "--input", path,
                           "--out", str(tmp_path / "out"), "--no-resize",
                           "--device", "cpu"] + TINY)
+    assert "photo.webp" in str(err.value)
+
+
+def test_restore_cli_restores_a_jpeg(tmp_path):
+    """A JPEG named by its path, at native geometry, is restored from PIL's
+    decode of it."""
+    from PIL import Image
+
+    from wavedm_tpu_torch.config import load_config
+
+    path = str(tmp_path / "photo.jpg")
+    img = np.random.default_rng(1).integers(0, 256, (32, 48, 3),
+                                            dtype=np.uint8)
+    Image.fromarray(img).save(path, quality=90)
+    assert restore_cli.main(["--config", "production", "--input", path,
+                             "--out", str(tmp_path / "out"), "--no-resize",
+                             "--device", "cpu"] + TINY) == 0
+    cfg = load_config("production", [o for o in TINY if o != "--set"])
+    rest = build_restorer(cfg, None, None, device="cpu")
+    gen = torch.Generator().manual_seed(cfg.training.seed)
+    x = np.asarray(Image.open(path).convert("RGB"))[None] / np.float32(255)
+    want = rest.restore_image(x.astype(np.float32), generator=gen)[0][0]
+    np.testing.assert_array_equal(
+        read_png(str(tmp_path / "out" / "photo_restored.png")),
+        to_uint8(want))

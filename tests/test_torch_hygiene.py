@@ -44,6 +44,10 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         for name in ("parallel", "parallel.mesh", "parallel.distributed",
                      "parallel.launch", "parallel.dryrun"):
             assert "wavedm_tpu_torch." + name in names, name
+        # and the data library's build and bindings, and the profiler
+        for name in ("native", "native.build", "data.native_loader",
+                     "utils.profiling"):
+            assert "wavedm_tpu_torch." + name in names, name
         import torch
         from wavedm_tpu_torch.models.sam import SAM
         from wavedm_tpu_torch.models.vgg_loss import VGG19Features
@@ -87,6 +91,18 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         from wavedm_tpu_torch.utils.images import read_png, write_png
         tmp = tempfile.mkdtemp()
         img = np.arange(32 * 32 * 3, dtype=np.uint8).reshape(32, 32, 3)
+        # a JPEG through the data library, built here from the port's
+        # source (this host has libjpeg's and libpng's headers)
+        from wavedm_tpu_torch.data import native_loader
+        from wavedm_tpu_torch.utils.images import read_image
+        assert native_loader.available(), native_loader.unavailable_reason()
+        assert read_image(os.path.join("tests", "golden", "images",
+                                       "raindrop_0000.jpg")).shape \
+            == (480, 720, 3)
+        from wavedm_tpu_torch.utils.profiling import annotate, trace
+        with trace(os.path.join(tmp, "trace")), annotate("hygiene"):
+            np.zeros(4)
+        assert os.path.exists(os.path.join(tmp, "trace", "trace.json"))
         os.makedirs(os.path.join(tmp, "in"))
         write_png(os.path.join(tmp, "in", "a.png"), img)
         assert (read_png(os.path.join(tmp, "in", "a.png")) == img).all()

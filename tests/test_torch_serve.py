@@ -51,6 +51,7 @@ from wavedm_tpu_torch.utils.convert import (hfrm_state_dict_from_flax,
 from wavedm_tpu_torch.utils.images import decode_png
 
 SEED = 61
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RAW = {
     "data": {"image_size": 8, "patch_size": 32},
     "model": {"ch": 32, "ch_mult": [1, 2], "num_res_blocks": 1,
@@ -141,12 +142,46 @@ def test_decode_equals_jax(mode, h, w, no_resize):
 
 
 def test_decode_refuses_what_is_not_png():
+    """A body of a format the port does not read is refused by name (JAX's
+    PIL would take the GIF); JPEG and BMP are taken
+    (``test_decode_takes_jpeg_palette_and_bmp_as_jax``)."""
     buf = io.BytesIO()
-    Image.fromarray(_image("RGB", 8, 8)).save(buf, "JPEG")
+    Image.fromarray(_image("RGB", 8, 8)).save(buf, "GIF")
     srv = server.RestorationServer(None)
-    for body in (buf.getvalue(), b"not an image"):
-        with pytest.raises(ValueError, match="only PNG"):
+    for body, field in ((buf.getvalue(), "GIF is not supported"),
+                        (b"not an image", "not a PNG, JPEG or BMP")):
+        with pytest.raises(ValueError, match=field) as err:
             srv._decode(body)
+        assert "request body" in str(err.value)
+        assert "only PNG, JPEG and BMP" in str(err.value)
+
+
+def _encoded(fmt):
+    """A 32x48 RainDrop crop as ``fmt``: a JPEG, a palette PNG or a BMP."""
+    img = decode_png(open(os.path.join(
+        REPO, "data", "raindrop", "raindrop_test", "input", "0000.png"),
+        "rb").read())[200:232, 300:348]
+    buf = io.BytesIO()
+    if fmt == "palette":
+        Image.fromarray(img).convert("P", palette=Image.ADAPTIVE).save(
+            buf, "PNG")
+    else:
+        Image.fromarray(img).save(buf, fmt)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ["JPEG", "palette", "BMP"])
+@pytest.mark.parametrize("no_resize", [False, True],
+                         ids=["lanczos_to_720x480", "native"])
+def test_decode_takes_jpeg_palette_and_bmp_as_jax(fmt, no_resize):
+    """The port's ``_decode`` of a JPEG (the data library), a palette PNG
+    and a BMP body equals JAX's PIL ``_decode``, resized or not."""
+    body = _encoded(fmt)
+    ours = server.RestorationServer(None, no_resize=no_resize)._decode(body)
+    theirs = jax_server.RestorationServer(None, no_resize=no_resize)._decode(
+        body)
+    assert ours.dtype == theirs.dtype == np.float32
+    assert np.array_equal(ours, theirs)
 
 
 class FixedRestorer:
@@ -326,6 +361,22 @@ def test_http_restore_health_and_survival(tiny_server):
             assert b"only PNG" in err.value.read()
     _post(port, body, results)          # the device owner survived
     assert results[-1][0] == 200
+
+
+@pytest.mark.parametrize("fmt", ["JPEG", "palette", "BMP"])
+def test_http_restores_jpeg_palette_and_bmp_bodies(tiny_server, fmt):
+    """A JPEG, a palette-PNG and a BMP body are decoded as PIL decodes
+    them and answered 200 with a PNG of their geometry."""
+    srv, port = tiny_server
+    body = _encoded(fmt)
+    assert np.array_equal(srv._decode(body),
+                          _pil_decode(body).astype(np.float32) / 255.0)
+    results = []
+    _post(port, body, results)
+    status, png = results[0]
+    assert status == 200
+    out = decode_png(png)
+    assert out.dtype == np.uint8 and out.shape == (32, 48, 3)
 
 
 def test_a_burst_beyond_the_stdlib_backlog_fills_one_batch():

@@ -527,12 +527,19 @@ def _write_raindrop(root, n_train=3, n_test=2):
                                                   dtype=np.uint8))
 
 
-def test_cli_trains_on_raindrop_and_validates(tmp_path, capsys):
+def test_cli_trains_on_raindrop_and_validates(tmp_path, capsys,
+                                              monkeypatch):
     """The real-data path over a tmp RainDrop tree, with the frozen HFRM
     from a stage-1 checkpoint: validation at step 2 restores two test
-    pairs and dumps them; the streamed and device-cache paths train to
-    the same weights.  Without HFRM weights validation is skipped."""
+    pairs and dumps them; the streamed PIL-order and device-cache paths
+    train to the same weights (the native crop stream, which the CLI
+    takes by default where the data library builds, draws other crops by
+    design and is switched off here).  Without HFRM weights validation is
+    skipped."""
+    from wavedm_tpu_torch.data import raindrop
     from wavedm_tpu_torch.training.hfrm_trainer import HFRMTrainer
+
+    monkeypatch.setattr(raindrop.native_loader, "available", lambda: False)
 
     _write_raindrop(tmp_path)
     raw = _raw(model={"use_gt_in_train": False},

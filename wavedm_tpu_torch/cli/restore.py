@@ -1,4 +1,4 @@
-"""Restore degraded PNG images (no ground truth needed).
+"""Restore degraded PNG, JPEG or BMP images (no ground truth needed).
 
 The port's counterpart of ``scripts/restore.py``: decode, the canonical
 720x480 eval resize (PIL's LANCZOS, in numpy), geometry-bucketed batches,
@@ -12,9 +12,11 @@ the on-device restoration, PNG outputs ``{name}_restored.png``.
 global-attention (``raindrop_wavelet_global.yaml``) paths; only the
 wavelet path reads ``--hfrm-ckpt``.  The Laplacian path
 (``raindrop_lap.yaml``) restores from [cond | gt] pairs and is refused
-here (``cli/eval_diffusion.py`` runs it).  Inputs must be PNG (other
-formats raise).  Without ``--resume`` the weights are random (seeded).
-Runs on the card unless ``--device`` names another.
+here (``cli/eval_diffusion.py`` runs it).  Inputs are PNG, JPEG or BMP
+(``utils/images.read_image``; a directory lists those extensions, and a
+file of another format named by a glob or path raises naming it; JPEG
+needs the port's data library).  Without ``--resume`` the weights are
+random (seeded).  Runs on the card unless ``--device`` names another.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Diffusion checkpoint (random weights without it)")
     p.add_argument("--hfrm-ckpt", default="")
     p.add_argument("--input", required=True,
-                   help="PNG file, directory, or glob")
+                   help="PNG/JPEG/BMP file, directory, or glob")
     p.add_argument("--out", required=True, help="Output directory")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--ema", action="store_true")
@@ -65,7 +67,7 @@ def list_inputs(spec: str) -> List[str]:
     if os.path.isdir(spec):
         return sorted(
             os.path.join(spec, f) for f in os.listdir(spec)
-            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".webp")))
+            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")))
     if any(ch in spec for ch in "*?["):
         return sorted(glob.glob(spec))
     return [spec]
@@ -81,7 +83,7 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.inference.loader import build_restorer
     from wavedm_tpu_torch.inference.restoration import refuse_lap
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
-    from wavedm_tpu_torch.utils.images import read_png, save_image
+    from wavedm_tpu_torch.utils.images import read_image, save_image
 
     cfg = load_config(args.config, args.overrides)
     refuse_lap(cfg, "cli.restore")
@@ -109,7 +111,7 @@ def main(argv=None) -> int:
     # geometry-bucketed batches: same-size images restore together
     buckets = {}
     for p in paths:
-        arr = restore_input(read_png(p), args.no_resize)
+        arr = restore_input(read_image(p), args.no_resize)
         buckets.setdefault(arr.shape, []).append((p, arr))
 
     generator = torch.Generator(device=restorer.device).manual_seed(

@@ -1,7 +1,7 @@
 """Serve restoration over HTTP with device microbatching.
 
 The port's counterpart of ``scripts/serve.py``: one device-owner thread
-keeps the card's batch full; concurrent POSTs of same-geometry PNGs share
+keeps the card's batch full; concurrent POSTs of same-geometry images share
 one restoration (``inference/server.py``).
 
   python -m wavedm_tpu_torch.cli.serve --config production \\
@@ -18,7 +18,8 @@ path reads ``--hfrm-ckpt``).  ``--resume`` / ``--hfrm-ckpt`` take reference
 ``.pth``/``.pth.tar`` files, the port's own checkpoints, or a file
 converted from the JAX package's Orbax checkpoints
 (``cli/convert_orbax.py``); ``--resume ''`` serves random (seeded)
-weights.  Requests must be PNG.  Runs on the card unless ``--device``
+weights.  Requests are PNG, JPEG or BMP (``utils/images.decode_image``;
+JPEG needs the port's data library).  Runs on the card unless ``--device``
 names another.
 
 Patch-parallel serving, one process per card:

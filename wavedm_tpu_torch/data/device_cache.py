@@ -1,7 +1,7 @@
 """The decoded training split resident on the device, cropped there.
 
 The port of ``wavedm_tpu/data/device_cache.py``.  The split is decoded once
-(``utils/images.read_png``) and uploaded as one (N, H, W, 6) uint8 tensor
+(``utils/images.read_image``) and uploaded as one (N, H, W, 6) uint8 tensor
 (RainDrop's 192 training pairs at 720x480: 398 MB).  A step's crops are
 then one gather on the device driven by a (B, 3) int32 array of
 [image, y, x] rows, so a step moves a few hundred bytes from the host
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from wavedm_tpu_torch.config import ConfigError
-from wavedm_tpu_torch.utils.images import read_png
+from wavedm_tpu_torch.utils.images import read_image
 
 __all__ = ["to_unit", "DeviceCropCache", "build_pair_cache"]
 
@@ -89,7 +89,7 @@ def build_pair_cache(input_paths: List[str], gt_paths: List[str],
                      patch_size: int, device=None) -> DeviceCropCache:
     """Decode every pair once and upload the split as one uint8 tensor;
     raises ``ConfigError`` for a split of mixed geometries."""
-    pairs = [np.concatenate([read_png(a), read_png(b)], axis=-1)
+    pairs = [np.concatenate([read_image(a), read_image(b)], axis=-1)
              for a, b in zip(input_paths, gt_paths)]
     shapes = {p.shape for p in pairs}
     if len(shapes) > 1:

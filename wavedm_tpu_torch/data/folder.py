@@ -4,7 +4,7 @@ The port of ``wavedm_tpu/data/folder.py``: sorted ``input/`` and ``gt/``
 listings, an optional random crop shared by both images of a pair, an
 optional BILINEAR resize (``utils/images.resize_bilinear``), and under a
 root whose path names "raindrop" the 720x480 enforcement when neither is
-on.  Images are PNG (``utils/images.read_png``).
+on.  Images are PNG, JPEG or BMP (``utils/images.read_image``).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from wavedm_tpu_torch.utils.images import read_png, resize_bilinear
+from wavedm_tpu_torch.utils.images import read_image, resize_bilinear
 
 __all__ = ["PairedImageFolder"]
 
@@ -56,7 +56,7 @@ class PairedImageFolder:
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """(input, gt) as (H, W, 3) float32 in [0, 1]; the crop draws x
         then y from ``rng``."""
-        a, b = read_png(self.inputs[idx]), read_png(self.gts[idx])
+        a, b = read_image(self.inputs[idx]), read_image(self.gts[idx])
         h, w = a.shape[:2]
         if self.crop:
             rng = rng or np.random.default_rng()

@@ -2,28 +2,37 @@
 
 The port of ``wavedm_tpu/data/raindrop.py``.  The splits live in
 ``<data_dir>/raindrop/{train,raindrop_test}/{input,gt}/``; a ground-truth
-name is its input's name with "rain" replaced by "clean".  Images are read
-as PNG (``utils/images.read_png``).
+name is its input's name with "rain" replaced by "clean".  Images are PNG,
+JPEG or BMP (``utils/images.read_image``).
 
-- Train: each sample draws ``patch_n`` random P x P crops from one pair,
-  from a generator seeded with (seed, epoch, index), ys before xs, and
-  returns them as (patch_n, P, P, 6) float32 [input | gt] in [0, 1];
-  :meth:`RainDrop.train_batches` stacks ``batch_size`` samples, streamed
-  through a depth-2 thread prefetcher or gathered on the device from the
-  decoded split (``data.device_cache``, ``data/device_cache.py``).  Both
-  give the same batches, equal to the JAX package's PIL path.  With
+- Train: :meth:`RainDrop.train_batches` yields (batch * patch_n, P, P, 6)
+  float32 [input | gt] crop batches in [0, 1] from one of three paths,
+  picked as JAX picks them:
+
+  1. ``data.device_cache`` (and not ``data.global_attn``): the decoded
+     split on the device, cropped there (``data/device_cache.py``);
+  2. the native crop stream, by default wherever the port's data library
+     is built or builds (``data/native_loader.py``) and
+     ``data.global_attn`` is off: each batch of the shuffled order is
+     decoded and cropped by native threads, the crops of slot k drawn from
+     ``mt19937_64(Mix(batch seed, k))``, the batch seed folding in (seed,
+     epoch, batch start).  Its batches equal the JAX package's native
+     stream to the byte, and differ from the other two paths' by design;
+  3. otherwise (or ``use_native=False``) the streamed PIL-order path: each
+     sample draws ``patch_n`` crops from a generator seeded with (seed,
+     epoch, index), ys before xs, and the crops are divided by 255.  Paths
+     1 and 3 give the same batches, equal to the JAX package's PIL path.
+
+  Paths 2 and 3 run through a depth-2 thread prefetcher.  With
   ``data.global_attn`` a sample also carries its whole input image,
   LANCZOS-resized to 720x480 (once per image, not per crop), and a batch
-  is (crops, totals); these batches are always streamed, as in JAX.
+  is (crops, totals); these batches are always on path 3, as in JAX.
 - Eval: each pair at the canonical eval geometry (720x480, capped at 1024,
   rounded up to /16), ``resize_lanczos``-resized where it is not there.
 - Each process takes every ``process_count``-th index from
   ``process_index`` (the ranks of a ``torchrun`` world, whose CLIs pass
   them), and its device cache holds that stripe alone.  The epoch number is
   folded into the shuffle seed.
-
-The JAX package's native C++ decoder is not ported: its crop stream
-differs from the PIL path's by design, and this path follows the PIL one.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from wavedm_tpu_torch.config import Config
-from wavedm_tpu_torch.utils.images import read_png, resize_lanczos
+from wavedm_tpu_torch.data import native_loader
+from wavedm_tpu_torch.utils.images import read_image, resize_lanczos
 
 __all__ = ["eval_resize_dims", "fit_image", "restore_input",
            "RainDropDataset", "RainDrop"]
@@ -91,7 +101,7 @@ def restore_input(img: np.ndarray, no_resize: bool = False) -> np.ndarray:
 def _eval_sample(inp: str, gt: str) -> Tuple[np.ndarray, str]:
     """((H, W, 6) [input | gt] pair at the eval geometry, image id)."""
     img_id = os.path.basename(inp).rsplit(".", 1)[0]
-    a, b = read_png(inp), read_png(gt)
+    a, b = read_image(inp), read_image(gt)
     size = eval_resize_dims(a.shape[1], a.shape[0])
     return np.concatenate([fit_image(a, size), fit_image(b, size)],
                           axis=-1), img_id
@@ -117,7 +127,7 @@ class RainDropDataset:
     def _train_sample(self, idx: int, rng: np.random.Generator):
         """(patch_n, P, P, 6) crops; with ``return_total`` also the
         (1, 480, 720, 3) whole input image."""
-        inp, gt = read_png(self.inputs[idx]), read_png(self.gts[idx])
+        inp, gt = read_image(self.inputs[idx]), read_image(self.gts[idx])
         h, w = inp.shape[:2]
         p = self.patch_size
         ys = rng.integers(0, max(1, h - p + 1), self.patch_n)
@@ -205,13 +215,16 @@ class RainDrop:
                             "raindrop_test")
 
     def train_batches(self, epoch: int, batch_size: Optional[int] = None,
-                      prefetch: bool = True) -> Iterator:
+                      prefetch: bool = True,
+                      use_native: Optional[bool] = None) -> Iterator:
         """(batch * patch_n, P, P, 6) float32 crop batches in [0, 1] for
         one epoch: numpy arrays, or tensors on the device with
         ``data.device_cache``.  With ``data.global_attn``, (crops,
         (batch, 480, 720, 3) totals) pairs of numpy arrays, streamed even
-        when ``data.device_cache`` is set.  A last partial batch is
-        dropped."""
+        when ``data.device_cache`` is set.  ``use_native`` picks the
+        native crop stream (None: wherever the data library is available
+        and ``data.global_attn`` is off), after ``data.device_cache``.  A
+        last partial batch is dropped."""
         cfg = self.cfg
         use_global = cfg.data.global_attn
         ds = RainDropDataset(self.train_dir(), cfg.data.patch_size,
@@ -242,11 +255,35 @@ class RainDrop:
                     yield self._cache.crop_batch(np.concatenate(buf))
                     buf = []
             return
-        it = ds.epoch(epoch, seed)
-        if prefetch:
-            it = iter(_Prefetcher(it))
+        if use_native is None:
+            # the native stream has crops only: the global path's totals
+            # keep it on the PIL-order path
+            use_native = native_loader.available() and not use_global
+        if use_native:
+            it = self._native_batches(ds, epoch, bs)
+        else:
+            it = self._streamed_batches(ds, epoch, bs, use_global)
+        yield from (_Prefetcher(it) if prefetch else it)
+
+    def _native_batches(self, ds: RainDropDataset, epoch: int,
+                        bs: int) -> Iterator[np.ndarray]:
+        """JAX's native stream: batch ``order[s:s + bs]`` of the shuffled
+        order, its crops seeded by (seed, epoch, s)."""
+        cfg = self.cfg
+        order = np.array(ds.indices)
+        np.random.default_rng(cfg.training.seed + epoch).shuffle(order)
+        for s in range(0, len(order) - bs + 1, bs):
+            idxs = order[s:s + bs]
+            yield native_loader.make_crop_batch(
+                [ds.inputs[i] for i in idxs], [ds.gts[i] for i in idxs],
+                patch_n=cfg.training.patch_n, patch=cfg.data.patch_size,
+                seed=(cfg.training.seed * 100003 + epoch) * 1000003 + s,
+                n_threads=cfg.data.num_workers)
+
+    def _streamed_batches(self, ds: RainDropDataset, epoch: int, bs: int,
+                          use_global: bool) -> Iterator:
         buf = []
-        for sample in it:
+        for sample in ds.epoch(epoch, self.cfg.training.seed):
             buf.append(sample)
             if len(buf) == bs:
                 if use_global:

@@ -7,7 +7,7 @@ the results back out; the HTTP side is the standard library's
 ``http.server``.
 
 Endpoints:
-  POST /restore     PNG bytes -> restored PNG bytes
+  POST /restore     PNG, JPEG or BMP bytes -> restored PNG bytes
   GET  /healthz     JSON: served/batch stats, queue depth
 
 As in JAX: requests are grouped only with same-shape peers, a mixed queue
@@ -22,9 +22,12 @@ Differences from JAX, by design:
   listens with the standard library's 5: a burst of more concurrent
   requests than that has connections dropped and retried about a second
   later, which splits a burst that should fill one batch.
-- Requests must be PNG (decoded by ``utils/images.py``): the card's
-  machine has no JPEG decoder without PIL.  Anything else is answered 500
-  with a ``ValueError`` that says so.
+- Requests are decoded by ``utils/images.decode_image`` without PIL: PNG
+  of every encoding and BMP in numpy, JPEG through the port's data
+  library (libjpeg; a machine without libjpeg's headers cannot build it,
+  and there a JPEG is answered 500 with the reason).  JAX's PIL also
+  takes WebP, GIF and the rest; here any other body is answered 500 with
+  a ``ValueError`` naming its format.
 - A restorer on the Laplacian path is refused with a ``ValueError``: it
   restores from a [cond | gt] pair, and a request carries no ground truth
   (JAX's server would fail on each request instead).
@@ -58,7 +61,7 @@ import torch
 from wavedm_tpu_torch.data.raindrop import restore_input
 from wavedm_tpu_torch.inference.restoration import refuse_lap
 from wavedm_tpu_torch.parallel.distributed import collective_device
-from wavedm_tpu_torch.utils.images import decode_png, encode_png
+from wavedm_tpu_torch.utils.images import decode_image, encode_png
 
 __all__ = ["Microbatcher", "RestorationServer"]
 
@@ -256,10 +259,10 @@ class RestorationServer:
     # ------------------------------------------------------------ HTTP side
 
     def _decode(self, body: bytes) -> np.ndarray:
-        """PNG bytes -> (h, w, 3) float32 in [0, 1] at the serving geometry:
-        the eval protocol's 720x480 (LANCZOS), or with ``no_resize`` the
-        image's own size rounded up to /16."""
-        return restore_input(decode_png(body, "request body"),
+        """PNG, JPEG or BMP bytes -> (h, w, 3) float32 in [0, 1] at the
+        serving geometry: the eval protocol's 720x480 (LANCZOS), or with
+        ``no_resize`` the image's own size rounded up to /16."""
+        return restore_input(decode_image(body, "request body"),
                              self.no_resize)
 
     def restore_bytes(self, body: bytes, timeout: float = 600.0) -> bytes:

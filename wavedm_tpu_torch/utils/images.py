@@ -1,16 +1,32 @@
-"""Image I/O without PIL: a PNG reader and writer on ``zlib``/``struct`` and
-numpy, PIL's LANCZOS and BILINEAR resamples in numpy, and the dump helpers of
+"""Image I/O without PIL: a PNG reader and writer and a BMP reader on
+``zlib``/``struct`` and numpy, JPEG through the port's data library, PIL's
+LANCZOS and BILINEAR resamples in numpy, and the dump helpers of
 ``wavedm_tpu/utils/images.py``.
 
-``decode_png`` (``read_png`` for a file) takes 8-bit, non-interlaced PNGs
-of colour type 0 (grey), 2 (RGB) or 6 (RGBA) and returns (H, W, 3) uint8
-RGB, the alpha dropped and grey replicated as PIL's ``convert("RGB")``
-does.  All five row filters are undone; Sub and Up vectorise per row, Average and
-Paeth run a Python loop (the RainDrop test split uses only Sub and Up).
-Palette images, other bit depths, Adam7 interlacing and other formats
-raise ``ValueError`` naming the file and the field.  ``encode_png``
-(``write_png`` for a file) writes an RGB image as one IDAT with filter 0
-(None) or 2 (Up) on every row.
+Every reader returns (H, W, 3) uint8 RGB equal to PIL's
+``Image.open(...).convert("RGB")``, which the JAX package's server and
+restore CLI use; errors are ``ValueError`` naming the file and the field.
+
+- ``decode_image`` (``read_image`` for a file) dispatches on the
+  signature: PNG, JPEG (``FF D8``) and BMP (``BM``).  WebP, GIF and
+  anything else are refused.  JPEG is decoded by libjpeg in the port's
+  data library (``data/native_loader.decode_bytes``); where that library
+  cannot be built, a JPEG raises with the reason.
+- ``decode_png`` (``read_png`` for a file) takes every PNG: colour types
+  0 (grey at 1, 2, 4, 8 or 16 bits), 2 (RGB), 3 (palette at 1, 2, 4 or 8
+  bits; an index past the PLTE reads black), 4 (grey + alpha) and 6
+  (RGBA) at 8 or 16 bits, plain or Adam7-interlaced.  Alpha and tRNS are
+  dropped, grey is replicated, grey below 8 bits is scaled to 0..255
+  (1 bit: x255, 2: x85, 4: x17), 16-bit RGB, RGBA and grey + alpha keep
+  the high byte, and 16-bit grey is clipped at 255, as PIL's "I;16" mode
+  converts (libpng, and so the data library, keeps the high byte there).
+  All five row filters are undone; Sub and Up vectorise per row, Average
+  and Paeth run a Python loop (the RainDrop test split uses only Sub and
+  Up).  ``encode_png`` (``write_png`` for a file) writes an RGB image as
+  one IDAT with filter 0 (None) or 2 (Up) on every row.
+- ``decode_bmp`` takes uncompressed (``BI_RGB``) BMPs at 24 and 32 bits
+  (the fourth byte dropped) and 8-bit palette ones, rows bottom-up or
+  top-down.
 
 ``resize_lanczos`` and ``resize_bilinear`` are PIL's ``Image.resize``
 with ``Image.LANCZOS`` and ``Image.BILINEAR`` on a uint8 image: a
@@ -30,11 +46,17 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["to_uint8", "save_image", "make_grid", "read_png", "write_png",
-           "decode_png", "encode_png", "resize_lanczos", "resize_bilinear"]
+__all__ = ["to_uint8", "save_image", "make_grid", "read_image",
+           "decode_image", "read_png", "write_png", "decode_png",
+           "encode_png", "decode_bmp", "resize_lanczos", "resize_bilinear"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}            # colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}                       # colour type -> its bit depths
+# Adam7's seven passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _PRECISION_BITS = 32 - 8 - 2             # PIL's fixed-point coefficients
 
 
@@ -110,48 +132,14 @@ def _unfilter_paeth(line: np.ndarray, prev: np.ndarray,
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit PNG file -> (H, W, 3) uint8 RGB."""
+    """A PNG file -> (H, W, 3) uint8 RGB."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The bytes of an 8-bit PNG -> (H, W, 3) uint8 RGB; errors name
-    ``name``."""
-    if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{name}: not a PNG file (signature); only PNG "
-                         "input is supported")
-    header, idat = None, []
-    for ctype, body in _chunks(name, data):
-        if ctype == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype[0] & 0x20 == 0 and ctype not in (b"PLTE", b"IEND"):
-            raise ValueError(f"{name}: unknown critical chunk {ctype!r}")
-    if header is None:
-        raise ValueError(f"{name}: no IHDR chunk")
-    w, h, depth, colour, compression, filtering, interlace = header
-    if colour not in _CHANNELS:
-        kind = " (palette)" if colour == 3 else ""
-        raise ValueError(f"{name}: colour type {colour}{kind} is not "
-                         "supported")
-    if depth != 8:
-        raise ValueError(f"{name}: bit depth {depth} is not supported "
-                         "(8 only)")
-    if interlace != 0:
-        raise ValueError(f"{name}: interlace method {interlace} (Adam7) is "
-                         "not supported")
-    if compression != 0 or filtering != 0:
-        raise ValueError(f"{name}: compression/filter method "
-                         f"{compression}/{filtering} is not PNG's")
-    bpp = _CHANNELS[colour]
-    stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{name}: image data holds {len(raw)} bytes, "
-                         f"IHDR asks for {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
+def _unfilter(rows: np.ndarray, bpp: int, name: str) -> np.ndarray:
+    """Undo the row filters of (h, 1 + stride) uint8 rows -> (h, stride)."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -159,7 +147,7 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         if kind == 0:
             out[y] = line
         elif kind == 1:
-            out[y] = np.cumsum(line.reshape(w, bpp), axis=0,
+            out[y] = np.cumsum(line.reshape(-1, bpp), axis=0,
                                dtype=np.uint8).reshape(-1)
         elif kind == 2:
             out[y] = line + prev
@@ -170,11 +158,191 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         else:
             raise ValueError(f"{name}: row {y} has filter type {kind}")
         prev = out[y]
-    img = out.reshape(h, w, bpp)
-    if bpp == 1:
-        return np.repeat(img, 3, axis=2)
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, channels: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered (h, stride) rows -> (h, w, channels) samples: uint8 up to
+    8 bits (unscaled), uint16 at 16."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    if depth == 16:
+        pairs = rows[:, :w * channels * 2].reshape(h, w, channels, 2)
+        return (pairs[..., 0].astype(np.uint16) << 8) | pairs[..., 1]
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[..., None]
+
+
+def _to_rgb(img: np.ndarray, colour: int, depth: int,
+            palette: bytes) -> np.ndarray:
+    """(H, W, channels) samples -> (H, W, 3) uint8 as PIL's
+    ``convert("RGB")``."""
+    if colour == 3:
+        table = np.zeros((256, 3), np.uint8)       # past the PLTE: black
+        entries = np.frombuffer(palette, np.uint8)[:768].reshape(-1, 3)
+        table[:len(entries)] = entries
+        return table[img[..., 0]]
+    if depth == 16:
+        img = (np.minimum(img, 255) if colour == 0 else img >> 8
+               ).astype(np.uint8)
+    elif depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    if colour in (0, 4):
+        return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
 
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of a PNG -> (H, W, 3) uint8 RGB, as PIL's
+    ``convert("RGB")``; errors name ``name``."""
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{name}: not a PNG file (signature)")
+    header, palette, idat = None, None, []
+    for ctype, body in _chunks(name, data):
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = body
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype[0] & 0x20 == 0 and ctype != b"IEND":
+            raise ValueError(f"{name}: unknown critical chunk {ctype!r}")
+    if header is None:
+        raise ValueError(f"{name}: no IHDR chunk")
+    w, h, depth, colour, compression, filtering, interlace = header
+    if colour not in _CHANNELS:
+        raise ValueError(f"{name}: colour type {colour} is not PNG's")
+    if depth not in _DEPTHS[colour]:
+        raise ValueError(f"{name}: bit depth {depth} is not valid for "
+                         f"colour type {colour}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{name}: interlace method {interlace} is not "
+                         "PNG's")
+    if compression != 0 or filtering != 0:
+        raise ValueError(f"{name}: compression/filter method "
+                         f"{compression}/{filtering} is not PNG's")
+    if colour == 3 and (palette is None or len(palette) % 3):
+        raise ValueError(f"{name}: colour type 3 (palette) without a valid "
+                         "PLTE chunk")
+    channels = _CHANNELS[colour]
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    raw = zlib.decompress(b"".join(idat))
+    passes = _passes(w, h, interlace)
+    want = sum(ph * ((pw * bits + 7) // 8 + 1) for *_, pw, ph in passes)
+    if len(raw) != want:
+        raise ValueError(f"{name}: image data holds {len(raw)} bytes, "
+                         f"IHDR asks for {want}")
+    img = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        stride = (pw * bits + 7) // 8
+        rows = np.frombuffer(raw, np.uint8, ph * (stride + 1),
+                             pos).reshape(ph, stride + 1)
+        pos += rows.size
+        img[y0::dy, x0::dx] = _samples(_unfilter(rows, bpp, name), pw,
+                                       channels, depth)
+    return _to_rgb(img, colour, depth, palette)
+
+
+def _passes(w: int, h: int, interlace: int):
+    """(x0, y0, dx, dy, width, height) of each non-empty pass: the whole
+    image, or Adam7's seven (an empty pass holds no bytes)."""
+    out = []
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+# ------------------------------------------------------------------- BMP
+
+def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of an uncompressed BMP (24 or 32 bits, or 8-bit palette)
+    -> (H, W, 3) uint8 RGB; errors name ``name``."""
+    if len(data) < 54 or not data.startswith(b"BM"):
+        raise ValueError(f"{name}: not a BMP file (signature or headers "
+                         "truncated)")
+    (offset,) = struct.unpack_from("<I", data, 10)
+    (info_size,) = struct.unpack_from("<I", data, 14)
+    if info_size < 40:
+        raise ValueError(f"{name}: BMP info header of {info_size} bytes "
+                         "(OS/2) is not supported")
+    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    (colours,) = struct.unpack_from("<I", data, 46)
+    if compression != 0:
+        raise ValueError(f"{name}: BMP compression {compression} is not "
+                         "supported (0, BI_RGB, only)")
+    if bits not in (8, 24, 32):
+        raise ValueError(f"{name}: BMP bit count {bits} is not supported "
+                         "(8, 24 or 32)")
+    if w <= 0 or h == 0:
+        raise ValueError(f"{name}: BMP size {w}x{h}")
+    top_down, h = h < 0, abs(h)
+    stride = (w * bits + 31) // 32 * 4
+    if len(data) < offset + stride * h:
+        raise ValueError(f"{name}: truncated BMP (pixel data)")
+    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h,
+                                                                     stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bits == 8:
+        n = colours or 256
+        if 14 + info_size + 4 * n > offset or n > 256:
+            raise ValueError(f"{name}: BMP colour table of {n} entries "
+                             "does not fit before the pixels")
+        table = np.frombuffer(data, np.uint8, 4 * n,
+                              14 + info_size).reshape(n, 4)[:, 2::-1]
+        index = rows[:, :w]
+        if int(index.max()) >= n:
+            raise ValueError(f"{name}: BMP palette index {index.max()} past "
+                             f"its {n} colours")
+        return np.ascontiguousarray(table[index])
+    nb = bits // 8
+    return np.ascontiguousarray(rows[:, :w * nb].reshape(h, w, nb)[..., 2::-1])
+
+
+# ------------------------------------------------------- by the signature
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG, JPEG or BMP file -> (H, W, 3) uint8 RGB
+    (:func:`decode_image`)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The bytes of a PNG, JPEG or BMP -> (H, W, 3) uint8 RGB, by the
+    signature; errors name ``name``."""
+    if data.startswith(_PNG_SIGNATURE):
+        return decode_png(data, name)
+    if data.startswith(b"\xff\xd8"):
+        from wavedm_tpu_torch.data import native_loader
+
+        reason = native_loader.unavailable_reason()
+        if reason is not None:
+            raise ValueError(f"{name}: JPEG is decoded by the port's data "
+                             f"library, which is unavailable here: {reason}")
+        return native_loader.decode_bytes(data, name)
+    if data.startswith(b"BM"):
+        return decode_bmp(data, name)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        kind = "WebP"
+    elif data[:6] in (b"GIF87a", b"GIF89a"):
+        kind = "GIF"
+    else:
+        raise ValueError(f"{name}: not a PNG, JPEG or BMP file (signature "
+                         f"{data[:8]!r}); only PNG, JPEG and BMP are "
+                         "supported")
+    raise ValueError(f"{name}: {kind} is not supported; only PNG, JPEG and "
+                     "BMP are")
+
+
+# ------------------------------------------------------------ PNG writer
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + ctype + body

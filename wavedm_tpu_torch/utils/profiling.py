@@ -1,20 +1,22 @@
-"""Step timing and a JSONL metrics log (the port's copies of
-``StepTimer`` and ``MetricsLogger`` from ``wavedm_tpu/utils/profiling.py``).
+"""Step timing, profiler traces and a JSONL metrics log: the port's
+``wavedm_tpu/utils/profiling.py``.  ``trace`` and ``annotate`` stand where
+``xla_trace`` and ``annotate`` stand there, on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
 from wavedm_tpu_torch.parallel.distributed import is_coordinator
 
-__all__ = ["StepTimer", "MetricsLogger"]
+__all__ = ["StepTimer", "trace", "annotate", "MetricsLogger"]
 
 
 class StepTimer:
@@ -39,6 +41,35 @@ class StepTimer:
     @property
     def mean(self) -> float:
         return sum(self.times) / len(self.times) if self.times else 0.0
+
+    def throughput(self, items_per_step: int) -> float:
+        return items_per_step / self.mean if self.mean else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block with ``torch.profiler`` (the CPU, and CUDA when a
+    card is present) and write its Chrome/Perfetto trace to
+    ``log_dir/trace.json``; the counterpart of JAX's ``xla_trace``.
+    Yields the profiler (its ``key_averages()`` for sums by op)."""
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named region in profiler traces (``record_function``), and an
+    NVTX range where a card is present; JAX's ``annotate``."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function(name))
+        if torch.cuda.is_available():
+            stack.enter_context(torch.cuda.nvtx.range(name))
+        yield
 
 
 class MetricsLogger:
