@@ -15,7 +15,12 @@ Phases, each printing one JSON line with its elapsed seconds:
                     found, the build seconds, ``available`` (and, when not,
                     why); the JPEG and native-stream checks below run only
                     where it is available
-  profiling         ``utils/profiling.trace`` and ``annotate`` around one
+  profiling         (in a child process started once the library is
+                    built, beside small_parity, which times nothing, and
+                    awaited before the first timed phase: once
+                    torch.profiler has run in a process, each later launch
+                    there costs the host more)
+                    ``utils/profiling.trace`` and ``annotate`` around one
                     DWT kernel call: the trace file holds the annotated
                     region; its device kernel events are counted
   kernels           every CUDA kernel of the paths against its plain PyTorch
@@ -146,6 +151,13 @@ A kernel's ``ms`` is the wrapper's time, CUDA events around back-to-back
 calls: what a caller pays when the card is not queued ahead, the host's
 Python included.  ``device_ms`` is the card's own time: the same calls
 captured in a CUDA graph and replayed, on inputs rotated past the L2 cache.
+The wavelet rows add ``host_ms``, the host clock per call over 200
+back-to-back calls (the wrapper's Python, its allocation and the launch;
+their mean), ``host_median_ms`` (the median of the same calls' 5 batches
+of 40, which one preemption of the shared host moves little), and
+``copy_device_ms``, the card's own copy of the same
+bytes timed as ``device_ms``: how close a memory-bound kernel can come to
+its bound on this card.
 
     python3 chip_smoke.py --tree DIR --phases kernels,restore
 
@@ -239,19 +251,25 @@ def device_ms(fn, x, iters=20, reps=3):
     return start.elapsed_time(end) / (iters * reps)
 
 
-def host_ms(fn, iters=200):
-    """Host time per call: the wrapper's Python and the launch, on the
-    host clock over back-to-back calls that the card runs behind."""
+def host_times(fn, iters=40, batches=5):
+    """Host time per call: the wrapper's Python, its allocation and the
+    launch, on the host clock over ``batches`` x ``iters`` back-to-back
+    calls that the card runs behind.  ``host_ms`` is their mean;
+    ``host_median_ms`` the median of the batches' means, which another
+    process taking the shared host for a while moves little."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    elapsed = time.perf_counter() - t
+    per_call = []
+    for _ in range(batches):
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per_call.append((time.perf_counter() - t) * 1e3 / iters)
     torch.cuda.synchronize()
-    return elapsed * 1e3 / iters
+    return dict(host_ms=sum(per_call) / batches,
+                host_median_ms=sorted(per_call)[batches // 2])
 
 
 def wall_ms(fn, iters=20):
@@ -349,23 +367,20 @@ def gn_plan(gn, n, c, hw, dtype):
     return dict(plan._asdict(), kind=plan.kind)
 
 
-def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
-                  phase="kernels"):
-    """Each kernel against its plain version at the main path's shapes:
-    the DWT/IWT on ``n_images`` 720x480 images, GroupNorm in the dtypes
-    ``tags`` at every site of a UNet forward over ``n_patches`` patches."""
+def wavelet_rows(gen, n_images, phase, suffix=""):
+    """The DWT and IWT kernels against their plain versions on
+    ``n_images`` 720x480 images in [-1, 1] (the IWT on the DWT's output),
+    each timed beside its plain version and one PyTorch call, and the
+    card's own copy of its input (``copy_device_ms``: the same bytes read
+    and written, a practical floor under the bound):
+    {"wavelet_dec" + suffix: row, "wavelet_rec" + suffix: row}."""
     import torch
     import torch.nn.functional as F
 
-    from wavedm_tpu_torch.ops import groupnorm_cuda as gn
     from wavedm_tpu_torch.ops import wavelet_cuda as wv
     from wavedm_tpu_torch.ops.wavelet import conv_weights
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = {}
-
-    # DWT on the pixel batch in [-1, 1]; IWT on its output
+    dev = gen.device
     x = torch.rand(n_images, 3, HEIGHT, WIDTH, device=dev,
                    generator=gen) * 2 - 1
     z = wv.wavelet_dec_cuda(x)
@@ -381,29 +396,63 @@ def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
     tol = 2e-6
     assert dec_err <= tol and rec_err <= tol and rt_err <= tol, (
         dec_err, rec_err, rt_err)
-    rows["wavelet_dec"] = dict(
+    rows = {}
+    rows["wavelet_dec" + suffix] = dict(
         source="wavedm_tpu_torch/csrc/wavelet.cu",
         replaces="wavedm_tpu/ops/wavelet_pallas.py:44",
         max_abs_err=dec_err, tol=tol,
         ms=time_ms(lambda: wv.wavelet_dec_cuda(x)),
         device_ms=device_ms(wv.wavelet_dec_cuda, x),
-        host_ms=host_ms(lambda: wv.wavelet_dec_cuda(x)),
+        **host_times(lambda: wv.wavelet_dec_cuda(x)),
         plain_ms=time_ms(lambda: wv.wavelet_dec_plain(x)),
         bound_ms=bound_ms(x, z),
-        library_ms=time_ms(lambda: F.conv2d(x, bank, stride=4, groups=3)))
-    rows["wavelet_rec"] = dict(
+        library_ms=time_ms(lambda: F.conv2d(x, bank, stride=4, groups=3)),
+        copy_device_ms=device_ms(torch.clone, x))
+    rows["wavelet_rec" + suffix] = dict(
         source="wavedm_tpu_torch/csrc/wavelet.cu",
         replaces="wavedm_tpu/ops/wavelet_pallas.py:60",
         max_abs_err=rec_err, tol=tol, roundtrip_err=rt_err,
         ms=time_ms(lambda: wv.wavelet_rec_cuda(z)),
         device_ms=device_ms(wv.wavelet_rec_cuda, z),
-        host_ms=host_ms(lambda: wv.wavelet_rec_cuda(z)),
+        **host_times(lambda: wv.wavelet_rec_cuda(z)),
         plain_ms=time_ms(lambda: wv.wavelet_rec_plain(z)),
         bound_ms=bound_ms(z, back),
         library_ms=time_ms(
-            lambda: F.conv_transpose2d(z_lib, bank, stride=4, groups=3)))
+            lambda: F.conv_transpose2d(z_lib, bank, stride=4, groups=3)),
+        copy_device_ms=device_ms(torch.clone, z))
     emit(phase, kernel="wavelet", shape=list(x.shape),
          dec_err=dec_err, rec_err=rec_err, roundtrip_err=rt_err, tol=tol)
+    return rows
+
+
+def wavelet_sizes():
+    """``--phases kernels``' other wavelet rows, to time two trees in
+    turns: 1 and 8 images, and the ``wavelet_in_unet`` slice with the
+    gradients (:func:`wavelet_grad_rows`).  The whole script takes the
+    8-image rows from ``serve`` and the slice's from ``switches``, which
+    time them on those paths."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = wavelet_rows(gen, 1, "kernels", "@1_image")
+    rows.update(wavelet_rows(gen, SERVE_BATCH, "kernels", "@8_images"))
+    rows.update(wavelet_grad_rows())
+    return rows
+
+
+def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
+                  phase="kernels"):
+    """Each kernel against its plain version at the main path's shapes:
+    the DWT/IWT on ``n_images`` 720x480 images, GroupNorm in the dtypes
+    ``tags`` at every site of a UNet forward over ``n_patches`` patches."""
+    import torch
+    import torch.nn.functional as F
+
+    from wavedm_tpu_torch.ops import groupnorm_cuda as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = wavelet_rows(gen, n_images, phase)
 
     # GroupNorm(+swish) at every distinct flagship site shape, f32 and bf16,
     # swish on and off.  A row of the table sums one UNet forward's sites of
@@ -1078,7 +1127,7 @@ class RecordingRestorer:
         return out
 
 
-def serve_phase(launches):
+def serve_phase(launches, rows):
     """Serving on the production profile (bfloat16, 10 steps, random
     weights from seed 61) at batch 8.
 
@@ -1101,7 +1150,9 @@ def serve_phase(launches):
     1 -> 8) is timed beside ``restore_image`` at batch 1; a body that is
     not an image gets a 500 (and the JPEG too, without the data library)
     and the next request a 200.  The launches of the 4 served
-    batches are counted.  Every client call has a timeout; the server is
+    batches are counted: they are those of the table's 8-image DWT/IWT
+    rows (``@8_images``, timed here), and the batch-1 restore's those of
+    its 1-image rows.  Every client call has a timeout; the server is
     stopped and its threads joined before the checks."""
     import threading
     import urllib.error
@@ -1140,6 +1191,8 @@ def serve_phase(launches):
         fused_at(gen, sites, n_patches, dtype, tag, tol, row, iters=3,
                  phase="serve", timed=timed)
         served[f"fused_gn_swish_conv_{tag}"] = row
+    for key in ("wavelet_dec", "wavelet_rec"):     # rows of the table
+        rows[f"{key}@8_images"] = served[key]
     for name, row in served.items():
         emit("serve", part="kernels", kernel=name,
              per=f"call on {SERVE_BATCH} images (wavelet) or UNet forward "
@@ -1334,6 +1387,9 @@ def serve_phase(launches):
     assert got == want, ("serve", got, want)
     for key, val in got.items():
         launches[key] += val
+    for key in ("wavelet_dec", "wavelet_rec"):     # the 8-image rows
+        launches[f"{key}@8_images"] = launches.get(f"{key}@8_images",
+                                                   0) + got[key]
 
     # each reply against the same padded batch restored directly, the
     # generator seeded and advanced as the server's
@@ -1358,10 +1414,16 @@ def serve_phase(launches):
 
     rest.restore_image(images[:1])
     torch.cuda.synchronize()
+    reset_counts()
     t = time.perf_counter()
     rest.restore_image(images[:1])
     torch.cuda.synchronize()
     batch1_ms = (time.perf_counter() - t) * 1e3
+    one = read_counts()         # the 1-image rows count this restore's
+    assert (one["wavelet_dec"], one["wavelet_rec"]) == (2, 1), one
+    for key in ("wavelet_dec", "wavelet_rec"):
+        launches[f"{key}@1_image"] = launches.get(f"{key}@1_image",
+                                                  0) + one[key]
     del rest, expect
     torch.cuda.empty_cache()
     lat = sorted(r[2] for r in results)
@@ -2388,6 +2450,7 @@ def variant_kernel_rows(pix, lap_cfg, n):
         replaces="wavedm_tpu/ops/wavelet_pallas.py:44", max_abs_err=err,
         ms=time_ms(lambda: wv.wavelet_dec_cuda(x)),
         device_ms=device_ms(wv.wavelet_dec_cuda, x),
+        **host_times(lambda: wv.wavelet_dec_cuda(x)),
         plain_ms=time_ms(lambda: wv.wavelet_dec_plain(x)),
         bound_ms=bound_ms(x, z), bound_by="bytes",
         library_ms=time_ms(lambda: torch.nn.functional.conv2d(
@@ -2800,6 +2863,7 @@ def wavelet_grad_rows():
         src, replaces=dec_at, max_abs_err=dec_err,
         ms=time_ms(lambda: wv.wavelet_dec_cuda(xs)),
         device_ms=device_ms(lambda t: wv.wavelet_dec_cuda(t[:, :3]), x6),
+        **host_times(lambda: wv.wavelet_dec_cuda(xs)),
         plain_ms=time_ms(lambda: wv.wavelet_dec_plain(xs)),
         bound_ms=bound_ms(xs, z[:, :48]),
         library_ms=time_ms(lambda: F.conv2d(xs, bank, stride=4, groups=3)))
@@ -2812,6 +2876,7 @@ def wavelet_grad_rows():
         src, replaces=rec_at, max_abs_err=rec_err,
         ms=time_ms(lambda: wv.wavelet_rec_cuda(z48)),
         device_ms=device_ms(wv.wavelet_rec_cuda, z48),
+        **host_times(lambda: wv.wavelet_rec_cuda(z48)),
         plain_ms=time_ms(lambda: wv.wavelet_rec_plain(z48)),
         bound_ms=bound_ms(z48, y),
         library_ms=time_ms(lambda: F.conv_transpose2d(z_lib, bank, stride=4,
@@ -2842,6 +2907,7 @@ def wavelet_grad_rows():
         src, replaces=dec_at, max_abs_err=diffs["rec_backward"],
         ms=time_ms(lambda: wv.WaveletRec.backward(None, g)),
         device_ms=device_ms(lambda t: wv.WaveletRec.backward(None, t), g),
+        **host_times(lambda: wv.WaveletRec.backward(None, g)),
         plain_ms=time_ms(lambda: wv.wavelet_dec_plain(g)),
         bound_ms=bound_ms(g, z48),
         library_ms=time_ms(lambda: F.conv2d(g, bank, stride=4, groups=3)))
@@ -3184,6 +3250,7 @@ def switches_phase(launches, rows):
 MULTIGPU_DEADLINE = 900.0   # seconds each world may live, the wait included
 BUILD_DIR = os.path.join(ROOT, "wavedm_tpu_torch", "_build")
 WORLDS = {}                 # the multigpu phase's worlds, once started
+CHILDREN = []               # other processes the script starts
 
 
 def _gate(name):
@@ -3364,15 +3431,19 @@ def gn_sweep(cfg, n_patches):
 def partial(phases, ref_cfg, prod_cfg):
     """Only the named phases (``--phases``), for comparing trees in one
     call: ``kernels`` (the DWT/IWT and GroupNorm kernels against their plain
-    versions, timed), ``restore`` (the production restore through
+    versions, timed; the DWT/IWT also at 1 and 8 images and on the
+    ``wavelet_in_unet`` slice), ``restore`` (the production restore through
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
     training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
-    ``serve``, ``variants``, ``switches`` and ``multigpu``."""
+    ``serve``, ``variants``, ``switches`` and ``multigpu``
+    (``profiling`` runs alone: see :func:`main`)."""
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
-        for name, row in check_kernels(ref_cfg, N_IMAGES * 45).items():
+        rows = check_kernels(ref_cfg, N_IMAGES * 45)
+        rows.update(wavelet_sizes())
+        for name, row in rows.items():
             emit("kernels", kernel=name, per="call (wavelet) or UNet "
                  "forward at N = 90 (GroupNorm)", **row)
     scratch = dict.fromkeys(read_counts(), 0)
@@ -3383,7 +3454,7 @@ def partial(phases, ref_cfg, prod_cfg):
     if "pipeline" in phases:
         pipeline_phase(scratch)
     if "serve" in phases:
-        serve_phase(scratch)
+        serve_phase(scratch, {})
     if "variants" in phases:
         variants_phase(scratch, {})
     if "switches" in phases:
@@ -3417,8 +3488,8 @@ def main(argv=None):
                     "script's own")
     ap.add_argument("--phases", help="comma-separated subset of "
                     "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
-                    "serve,variants,switches,multigpu to run alone; no "
-                    "final lines")
+                    "serve,variants,switches,multigpu to run alone, or "
+                    "profiling by itself; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -3431,6 +3502,10 @@ def main(argv=None):
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 2
+    if args.phases == "profiling":      # alone: no census, no data library
+        _build.library()
+        profiling_phase()
+        return 0
     from concurrent.futures import ThreadPoolExecutor
 
     from wavedm_tpu_torch.native import build as native_build
@@ -3454,6 +3529,9 @@ def main(argv=None):
          cuda=torch.version.cuda, tf32=False,
          package=os.path.dirname(_build.CSRC_DIR))
 
+    # a UNet's first forward on the meta device (the norm sites' census)
+    # costs seconds of one-time set-up: paid here, while nvcc runs
+    gn_sites(reference_profile(), N_IMAGES * 45)
     t = time.perf_counter()
     built.result()
     _build.library()
@@ -3462,7 +3540,6 @@ def main(argv=None):
          nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
          ptxas=ptxas_report(_build.last_ptxas))
     emit("native", **native.result())
-    profiling_phase()
 
     ref_cfg = reference_profile()
     prod_cfg = production_profile()
@@ -3470,13 +3547,31 @@ def main(argv=None):
         cfg.parallel.fused_groupnorm = True
     if args.phases:
         return partial(set(args.phases.split(",")), ref_cfg, prod_cfg)
+    # torch.profiler leaves each later launch of its process dearer on the
+    # host: the profiling phase runs in a child process, beside
+    # small_parity, and is done before the first timed phase
+    profiler = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phases", "profiling"]
+        + (["--tree", args.tree] if args.tree else []),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(profiler)
     # checks alone, no timing: it may run beside the multigpu worlds'
-    # start-up; the timed phases wait for them
+    # start-up and the profiling child; the timed phases wait for them
     small_parity()
+    t = time.perf_counter()
+    out, err = profiler.communicate(timeout=300)
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith('{"phase": "profiling"')]
+    assert profiler.returncode == 0 and lines, err[-3000:]
+    emit("profiling", process="child", waited_s=time.perf_counter() - t,
+         **{k: v for k, v in lines[-1].items() if k not in ("phase", "s")})
     emit("multigpu", part="start-up and tiny phases beside the build and "
          "small_parity", waited_s=await_multigpu())
     k_per_image = 45
     rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
+    # the 1-image rows' launches: the serve phase's batch-1 restore
+    rows.update(wavelet_rows(torch.Generator(device="cuda").manual_seed(
+        SEED + 11), 1, "kernels", "@1_image"))
     rows.update(check_fused_kernels(ref_cfg))
     check_whole_image_kernels(prod_cfg)
 
@@ -3562,7 +3657,7 @@ def main(argv=None):
     del unet_sd
     torch.cuda.empty_cache()
     eval_phase(launches)
-    serve_phase(launches)
+    serve_phase(launches, rows)
     variants_phase(launches, rows)
     switches_phase(launches, rows)
 
@@ -3628,7 +3723,8 @@ def main(argv=None):
     kernels = [dict(name=key, route="cuda", source=row["source"],
                     replaces=row["replaces"], launches=launches[key],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    device_ms=row["device_ms"],
+                    device_ms=row["device_ms"], host_ms=row.get("host_ms"),
+                    host_median_ms=row.get("host_median_ms"),
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row.get("bound_by", "bytes"),
                     library_ms=row["library_ms"])
@@ -3647,4 +3743,8 @@ if __name__ == "__main__":
     finally:
         for world in WORLDS.values():     # none outlives the script
             world.close()
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     sys.exit(rc)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from wavedm_tpu_torch.ops import groupnorm_cuda, wavelet_cuda
+from wavedm_tpu_torch.ops.wavelet import haar_packet_basis
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +41,127 @@ def test_wavelet_kernels_match_plain(cuda, shape):
     torch.testing.assert_close(back, wavelet_cuda.wavelet_rec_plain(z),
                                atol=2e-6, rtol=0)
     torch.testing.assert_close(back, x, atol=2e-6, rtol=0)
+
+
+def _blocks(x):
+    """(B, C, H, W) -> (B, C, H/4, W/4, 16): each 4x4 block, pixel 4p + q."""
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 4, 4, w // 4, 4).permute(
+        0, 1, 2, 4, 3, 5).reshape(b, c, h // 4, w // 4, 16)
+
+
+def ordered_dwt(x):
+    """The DWT as the kernel sums it: each coefficient the float32 sum of
+    its 16 terms in the order k = 0..15, each term exact (the basis is
+    +-1/4), so one rounding an addition as in its fmaf chain."""
+    m = torch.as_tensor(haar_packet_basis(2), dtype=torch.float32,
+                        device=x.device)
+    blk = _blocks(x)
+    out = []
+    for f in range(16):
+        acc = torch.zeros(blk.shape[:-1], device=x.device)
+        for k in range(16):
+            acc = acc + blk[..., k] * m[k, f]
+        out.append(acc)
+    b, c, h, w = blk.shape[:4]
+    return torch.stack(out, 1).reshape(b, 16 * c, h, w)
+
+
+def ordered_iwt(z):
+    """The IWT as the kernel sums it: pixel k the float32 sum over f =
+    0..15 of coefficient f times basis(k, f), in order."""
+    m = torch.as_tensor(haar_packet_basis(2), dtype=torch.float32,
+                        device=z.device)
+    b, fc, h, w = z.shape
+    co = z.reshape(b, 16, fc // 16, h, w)
+    px = []
+    for k in range(16):
+        acc = torch.zeros(co[:, 0].shape, device=z.device)
+        for f in range(16):
+            acc = acc + co[:, f] * m[k, f]
+        px.append(acc)
+    x = torch.stack(px, -1).reshape(b, fc // 16, h, w, 4, 4)
+    return x.permute(0, 1, 2, 4, 3, 5).reshape(b, fc // 16, 4 * h, 4 * w)
+
+
+# W = 8, 24, 40, 72: w = 2, 6, 10, 18 coefficients a row, so coefficient
+# rows start off 16 bytes and a row is not a whole number of 4-block
+# groups; odd H/4; 1 and 8 images; the main path's shape
+WAVELET_TAILS = [(1, 3, 12, 8), (8, 3, 20, 24), (1, 2, 36, 40),
+                 (8, 3, 12, 72), (3, 5, 28, 40), (2, 3, 480, 720),
+                 (8, 3, 480, 720), (1, 3, 480, 720)]
+
+
+@pytest.mark.parametrize("shape", WAVELET_TAILS)
+def test_wavelet_kernels_at_tail_shapes(cuda, shape):
+    """Both kernels against their plain versions within the stated 2e-6,
+    and equal to the kernel's own summation order bit for bit (0 error);
+    under no_grad (the direct launch) and under autograd (the Functions,
+    each kernel the other's backward) alike."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand(shape, device=cuda, generator=g) * 2 - 1
+    with torch.no_grad():
+        z = wavelet_cuda.wavelet_dec_cuda(x)
+        back = wavelet_cuda.wavelet_rec_cuda(z)
+    assert z.grad_fn is None and back.grad_fn is None
+    torch.testing.assert_close(z, wavelet_cuda.wavelet_dec_plain(x),
+                               atol=2e-6, rtol=0)
+    torch.testing.assert_close(back, wavelet_cuda.wavelet_rec_plain(z),
+                               atol=2e-6, rtol=0)
+    assert torch.equal(z, ordered_dwt(x))
+    assert torch.equal(back, ordered_iwt(z))
+    torch.testing.assert_close(back, x, atol=2e-6, rtol=0)
+    # each Function's backward is the other kernel on the gradient
+    xg = x.clone().requires_grad_()
+    zg = wavelet_cuda.wavelet_dec_cuda(xg)
+    assert torch.equal(zg.detach(), z)
+    gz = torch.randn(z.shape, device=cuda, generator=g)
+    zg.backward(gz)
+    assert torch.equal(xg.grad, ordered_iwt(gz))
+    zr = z.clone().requires_grad_()
+    gx = torch.randn(x.shape, device=cuda, generator=g)
+    wavelet_cuda.wavelet_rec_cuda(zr).backward(gx)
+    assert torch.equal(zr.grad, ordered_dwt(gx))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 12, 24), (3, 2, 20, 16),
+                                   (8, 3, 480, 720)])
+@pytest.mark.parametrize("offset, pad", [(1, 3), (2, 1), (0, 5)])
+def test_wavelet_coefficients_off_16_bytes(cuda, shape, offset, pad):
+    """The coefficient side at a start and a batch stride that are not
+    multiples of 4 floats: the IWT reads such a tensor in place through
+    the wrapper, and the DWT entry writes one (the wrapper always hands it
+    an aligned output), both equal to the aligned result and leaving the
+    gaps alone.  The pixel side refuses such layouts, in the wrapper and
+    in the C entry, and still must."""
+    b, c, h4, w4 = shape[0], shape[1], shape[2] // 4, shape[3] // 4
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.rand(shape, device=cuda, generator=g) * 2 - 1
+    want = ordered_dwt(x)
+    size = 16 * c * h4 * w4
+    flat = torch.full((offset + b * (size + pad),), float("nan"),
+                      device=cuda)
+    zs = flat.as_strided((b, 16 * c, h4, w4),
+                         (size + pad, h4 * w4, w4, 1), offset)
+    lib = wavelet_cuda._build.library()
+    wavelet_cuda._build.launch(lib, "wavelet_dec_f32", x.get_device(),
+                               x.data_ptr(), zs.data_ptr(), b, c, *shape[2:],
+                               x.stride(0) if b > 1 else x[0].numel(),
+                               size + pad)
+    torch.cuda.synchronize()
+    assert torch.equal(zs, want)
+    gaps = flat[offset:].view(b, size + pad)[:, size:]
+    assert torch.isnan(gaps).all() and torch.isnan(flat[:offset]).all()
+    with torch.no_grad():
+        back = wavelet_cuda.wavelet_rec_cuda(zs)
+    assert torch.equal(back, ordered_iwt(want))
+    px = torch.empty(1 + x.numel(), device=cuda)[1:].view(shape)
+    with pytest.raises(ValueError):
+        wavelet_cuda.wavelet_dec_cuda(px)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        wavelet_cuda._build.launch(lib, "wavelet_dec_f32", x.get_device(),
+                                   px.data_ptr(), zs.data_ptr(), b, c,
+                                   *shape[2:], x.numel() // b, size + pad)
 
 
 # GroupNorm shapes -> the launch plan (cluster blocks a segment, segments a

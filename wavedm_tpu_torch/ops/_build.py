@@ -11,7 +11,8 @@ PyTorch's headers, which keeps the build at seconds.  ``ptxas -v`` output
 The build runs at first use and again only when the sources change: a hash
 of the sources and flags is compiled into the library as a marker string,
 so the library file is the only thing the build leaves in the tree.
-:func:`launch` calls an entry on a tensor's device and current stream.
+:func:`launch` calls an entry on a tensor's device and current stream; the
+entries are looked up once, when the library loads.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ ENTRIES = {
 
 _lock = threading.Lock()
 _lib = None
+_fns = {}        # entry name -> its bound ctypes function, once loaded
 last_build_seconds = None   # wall time of this process's build, if any
 last_ptxas = ""             # ptxas -v report of that build
 
@@ -158,6 +160,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _fns[name] = fn
             lib.wavedm_error_string.argtypes = (ctypes.c_int,)
             lib.wavedm_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -171,18 +174,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch(lib: ctypes.CDLL, entry: str, device: torch.device, *args) -> None:
-    """Call C entry ``entry`` with ``args`` and the current stream of
-    ``device`` (a CUDA tensor's device), with that device current, and
-    raise on a CUDA error.  The stream is asked for on every call (a
-    caller's ``torch.cuda.stream`` or a graph capture changes it) through
-    the raw handle, which costs less than a ``torch.cuda.Stream``; the
-    device is switched only when it is not the current one."""
-    index = device.index
+def launch(lib: ctypes.CDLL, entry: str, index: int, *args) -> None:
+    """Call C entry ``entry`` with ``args`` and the current stream of CUDA
+    device ``index`` (a tensor's ``get_device()``), with that device
+    current, and raise on a CUDA error.  The stream is asked for on every
+    call (a caller's ``torch.cuda.stream`` or a graph capture changes it)
+    through the raw handle; the device is switched only when ``index`` is
+    not the current one, asked of the runtime directly."""
     stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        err = getattr(lib, entry)(*args, stream)
+    if index == torch._C._cuda_getDevice():
+        err = _fns[entry](*args, stream)
     else:
         with torch.cuda.device(index):
-            err = getattr(lib, entry)(*args, stream)
-    check(lib, err, entry)
+            err = _fns[entry](*args, stream)
+    if err:
+        check(lib, err, entry)

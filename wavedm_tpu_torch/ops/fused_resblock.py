@@ -178,7 +178,7 @@ def _launch(x, weight_gn, bias_gn, w, b, compute_dtype):
                       device=x.device) if splits > 1 else None)
     out = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device)
     entry = _ENTRY[compute_dtype]
-    _build.launch(lib, entry, x.device, x.data_ptr(), gamma.data_ptr(),
+    _build.launch(lib, entry, x.get_device(), x.data_ptr(), gamma.data_ptr(),
                   beta.data_ptr(), wk.data_ptr(), bias.data_ptr(),
                   ab.data_ptr(), None if ws is None else ws.data_ptr(),
                   out.data_ptr(), n, cin, h, wd, cout, cout_pad, splits,

@@ -156,7 +156,7 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     plan = group_norm_plan(n, c, hw, num_groups, x.dtype,
                            x.data_ptr() % 16 == 0)
-    _build.launch(lib, entry, x.device, x.data_ptr(), weight.data_ptr(),
+    _build.launch(lib, entry, x.get_device(), x.data_ptr(), weight.data_ptr(),
                   bias.data_ptr(), y.data_ptr(), n, c, hw, num_groups, eps,
                   int(swish), plan.cluster, plan.segs_per_cta, plan.slice,
                   plan.threads)
