@@ -13,11 +13,15 @@ Phases, each printing one JSON line with its elapsed seconds:
                     and PNG decode, the native crop stream) where it finds
                     jpeglib.h, png.h and zlib.h: the compiler, the headers
                     found, the build seconds, ``available`` (and, when not,
-                    why); the JPEG and native-stream checks below run only
-                    where it is available
-  profiling         (in a child process started once the library is
-                    built, beside small_parity, which times nothing, and
-                    awaited before the first timed phase: once
+                    why); the native-stream checks below run only where it
+                    is available.  Beside it PIL's version, whether it has
+                    the WebP and JPEG codecs, and the decoder
+                    ``utils/images.decode_image`` picks for each committed
+                    fixture (PNG, JPEG, WebP, GIF, TIFF)
+  profiling         (in a child process started with the script, whose
+                    start-up runs beside nvcc and which profiles once the
+                    library is built, beside small_parity, which times
+                    nothing; awaited before the first timed phase: once
                     torch.profiler has run in a process, each later launch
                     there costs the host more)
                     ``utils/profiling.trace`` and ``annotate`` around one
@@ -40,7 +44,8 @@ Phases, each printing one JSON line with its elapsed seconds:
                     micro-batches and the whole-image chain
   restore           the flagship UNet (156,492,675 params) and HFRM
                     (15,941,667) with random weights restore two synthetic
-                    720x480 images under the reference profile (25 steps,
+                    720x480 images under the reference profile (its 25
+                    steps cut to ``REF_STEPS`` = 5,
                     float32) and the production profile (10 steps from the
                     HFRM LL, bfloat16); launch counts are checked per run
   fused_vs_unfused  the production profile again with
@@ -68,12 +73,16 @@ Phases, each printing one JSON line with its elapsed seconds:
                     batches (each reply within one uint8 level of a direct
                     restore of the same batch): 14 synthetic PNGs, the
                     committed palette PNG of RainDrop test image 0000 and
-                    its committed JPEG (a 15th PNG where the data library
-                    is unavailable, and the JPEG then gets a 500 naming
-                    why), each decoded on the card's host equal to PIL's
-                    committed decode; a lone request and a bad one;
-                    latency, host decode (PNG, palette PNG, JPEG) and
-                    encode ms, peak memory
+                    its committed JPEG (decoded by the data library, or
+                    by PIL where the library is unavailable; a 15th PNG
+                    where neither can, and the JPEG then gets a 500
+                    naming why); a lone request and a bad one; latency,
+                    host decode (PNG, palette PNG, JPEG) and encode ms,
+                    peak memory.  Then a lossy and a lossless WebP, a GIF
+                    and the JPEG, each posted beside the same pixels as a
+                    PNG, all images of the batch from one x_T: each reply
+                    within one uint8 level of its twin's, or, where this
+                    machine's PIL lacks the codec, a 500 naming it
   train_parity      one train step of a small UNet on the card against the
                     same step on the CPU
   train             DiffusionTrainer.fit at flagship width with
@@ -104,6 +113,16 @@ Phases, each printing one JSON line with its elapsed seconds:
                     ``--hfrm-ckpt`` to cli.train_diffusion (2 steps) -> that
                     checkpoint to cli.eval_diffusion over 2 pairs; the
                     served HFRM holds the stage-1 file's weights
+  tools             every quality-loop tool of ``wavedm_tpu_torch/tools/``
+                    on the pipeline's checkpoints at full width and a
+                    small depth: the synthetic dataset (2 + 2 pairs), the
+                    per-band diagnostic (one image, 2 steps), the
+                    teacher-forced probe (4 crops), the seed study (8
+                    seeds, both chains at 2 steps), the toy eps-vs-v A/B
+                    (20 steps), an eval sweep of two rows read back by
+                    summarize_sweep, the dress rehearsal (2 + 2 steps) and
+                    the rehearsal A/B's three arms (1 step); each exits 0
+                    with finite numbers, launches counted
   variants          the three variant paths of the shipped configs at full
                     width (chains cut to 2 steps): the pixel path on one
                     720x480 image (874 patches of 128x128, micro-batches of
@@ -181,7 +200,8 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
 DEV = "cuda"               # the card (the switches phase names it so)
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3           # cut from 5 for the 5-minute cap
+REF_STEPS = 5   # the reference profile's restores (its own 25, x0_preds[-5])
 HFRM_PARAMS = 15_941_667   # HFRM at full width: dim 32, 2,2,2,4 / 6 / 2,2,2,2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -799,6 +819,33 @@ def synthetic_images(seed, n=N_IMAGES):
     return np.stack(imgs).astype(np.float32)
 
 
+GOLDEN = os.path.join(ROOT, "tests", "golden", "images")
+# committed fixtures of every format the served path reads
+FORMAT_FILES = ("raindrop_0000_palette.png", "raindrop_0000.jpg",
+                "rain_q80.webp", "rain_lossless.webp", "rain_rgba.webp",
+                "rain.gif", "rain.tif")
+
+
+def image_decoders():
+    """PIL's version and whether it has its WebP and JPEG codecs on this
+    machine; and the decoder ``utils/images.decode_image`` picks for each
+    committed fixture (``format: decoder``; PNG and BMP are numpy's)."""
+    from wavedm_tpu_torch.utils.images import image_decoder
+
+    try:
+        import PIL
+        from PIL import features
+        pil = {"version": PIL.__version__, "webp": features.check("webp"),
+               "jpg": features.check("jpg")}
+    except ImportError as e:
+        pil = {"version": None, "reason": str(e)}
+    decoders = {}
+    for name in FORMAT_FILES:
+        with open(os.path.join(GOLDEN, name), "rb") as f:
+            decoders[name] = ": ".join(image_decoder(f.read()))
+    return pil, decoders
+
+
 def reset_counts():
     from wavedm_tpu_torch.ops import reset_launch_counts
 
@@ -835,6 +882,9 @@ SMALL_VARIANTS = (("ddim", {}), ("dpmpp2m", {"solver": "dpmpp2m"}),
                   ("whole_image", {"whole_image": True}))
 
 
+SMALL_STEPS = 5         # small_parity's chains (cut from 10)
+
+
 def small_parity():
     """A small restoration through the kernels on the card against the same
     restoration through the plain versions on the CPU, float32, under each
@@ -851,7 +901,7 @@ def small_parity():
                                                 dtype=np.float32)
     gen = torch.Generator().manual_seed(0)
     noise = torch.randn(2, 3, 16, 24, generator=gen)
-    step_noise = torch.randn(10, 2, 3, 16, 24, generator=gen)
+    step_noise = torch.randn(SMALL_STEPS, 2, 3, 16, 24, generator=gen)
     for name, variant in SMALL_VARIANTS:
         variant = dict(variant)
         pred_type = variant.pop("pred_type", "eps")
@@ -861,7 +911,8 @@ def small_parity():
                       "attn_resolutions": [4]},
             "diffusion": {"num_diffusion_timesteps": 50},
             "training": {"pred_type": pred_type},
-            "sampling": {"sampling_timesteps": 10, "grid_r": 4, **variant},
+            "sampling": {"sampling_timesteps": SMALL_STEPS, "grid_r": 4,
+                         **variant},
             "hfrm": {"dim": 8, "middle_blk_num": 1, "enc_blk_nums": [1, 1],
                      "dec_blk_nums": [1, 1]},
             "parallel": {"fused_groupnorm": True}})
@@ -1004,14 +1055,18 @@ def counted_restore(rest, images, want, name, launches=None):
     return out, first_ms, got
 
 
+WHOLE_STEPS = 5         # the whole-image chain's steps (cut from 10)
+
+
 def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
     """The production profile (bfloat16, 10 steps over [0, 300),
     ``fused_groupnorm``) on the two 720x480 images through the sampler's
     other chains, the same weights and noise: dpmpp2m against DDIM, timed
     in turns; patch micro-batches of 16 against the unbatched chain, held
-    to this run's bfloat16-vs-float32 gap; the whole-image chain, in
-    bfloat16 and float32, and through ``fused_resblock`` held to the
-    whole-image chain's own bfloat16-vs-float32 gap."""
+    to this run's bfloat16-vs-float32 gap; the whole-image chain
+    (``WHOLE_STEPS`` steps over [0, 300)), in bfloat16 and float32, and
+    through ``fused_resblock`` held to the whole-image chain's own
+    bfloat16-vs-float32 gap."""
     import torch
 
     from wavedm_tpu_torch.config import production_profile
@@ -1075,15 +1130,15 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
     hw = whole_image_hw(cfg)
     whole = {}
     for name, changes, want in (
-            ("bf16", {}, gn_want(steps, 1)),
+            ("bf16", {}, gn_want(WHOLE_STEPS, 1)),
             ("f32", {"parallel__compute_dtype": "float32"},
-             gn_want(steps, 1, "f32")),
+             gn_want(WHOLE_STEPS, 1, "f32")),
             ("bf16_fused_resblock", {"parallel__fused_groupnorm": False,
                                      "parallel__fused_resblock": True},
-             {"fused_gn_swish_conv_bf16": 44 * steps, "wavelet_dec": 2,
+             {"fused_gn_swish_conv_bf16": 44 * WHOLE_STEPS, "wavelet_dec": 2,
               "wavelet_rec": 1})):
         rest = restorer(weights=name != "f32", sampling__whole_image=True,
-                        **changes)
+                        sampling__sampling_timesteps=WHOLE_STEPS, **changes)
         out, first_ms, got = counted_restore(rest, images, want,
                                              f"whole_image {name}", launches)
         peak = torch.cuda.max_memory_allocated()
@@ -1127,6 +1182,137 @@ class RecordingRestorer:
         return out
 
 
+# bodies posted beside their PNG twins: a lossy and a lossless WebP, a GIF
+# and a JPEG (its decoder the data library's or PIL's, by the rule)
+FORMAT_BODIES = ("rain_q80.webp", "rain_lossless.webp", "rain.gif",
+                 "raindrop_0000.jpg")
+
+
+class SameNoise:
+    """A restorer whose every image, in every batch, starts from one x_T:
+    a request's reply then depends on its pixels alone."""
+
+    def __init__(self, rest, noise):
+        self.rest, self.device, self.noise = rest, rest.device, noise
+
+    def restore_image(self, batch, generator=None):
+        return self.rest.restore_image(batch, noise=self.noise.expand(
+            len(batch), -1, -1, -1).contiguous())
+
+
+def serve_formats(rest, steps, launches):
+    """Each body of ``FORMAT_BODIES`` that this machine decodes is posted
+    beside the same pixels as a PNG (its decode here, encoded), all in one
+    burst to a server whose images share one x_T: each reply must equal
+    its twin's within one uint8 level.  A body this machine cannot decode
+    (no PIL, or a PIL without the codec) must get a 500 naming why.  Which
+    case held, and which decoder took each body, is reported; the batch's
+    launches are counted and checked."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.inference.server import RestorationServer
+    from wavedm_tpu_torch.utils.images import (decode_image, decode_png,
+                                               encode_png, image_decoder)
+
+    pil = np.load(os.path.join(GOLDEN, "decodes.npz"))
+    bodies, cases, requests, refused = {}, {}, [], {}
+    for name in FORMAT_BODIES:
+        with open(os.path.join(GOLDEN, name), "rb") as f:
+            data = f.read()
+        case = {"decoder": ": ".join(image_decoder(data))}
+        try:
+            img = decode_image(data, name)
+        except ValueError as e:
+            assert "PIL is not installed" in str(e) or "codec" in str(e), e
+            case["refused"] = str(e)
+            refused[name] = data
+        else:
+            case["equal_to_committed_pil_decode"] = bool(
+                np.array_equal(img, pil[name]))
+            bodies[name] = len(requests)
+            requests += [data, encode_png(img)]
+        cases[name] = case
+    gen = torch.Generator(device=rest.device).manual_seed(SEED + 12)
+    noise = torch.randn((1, 3, HEIGHT // 4, WIDTH // 4), generator=gen,
+                        device=rest.device)
+    srv = RestorationServer(SameNoise(rest, noise), batch=SERVE_BATCH,
+                            window_ms=SERVE_WINDOW_MS, rng_seed=SEED)
+    httpd = srv.serve("127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/restore"
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    replies, failures = [None] * len(requests), []
+
+    def send(body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=180) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def post(i, body):
+        try:
+            replies[i] = send(body)
+        except Exception as e:  # noqa: BLE001 -- reported below
+            failures.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        clients = [threading.Thread(target=post, args=(i, body), daemon=True)
+                   for i, body in enumerate(requests)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(240)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for name, data in refused.items():
+            status, text = send(data)
+            cases[name]["reply"] = [status, text.decode()[:300]]
+            assert status == 500 and "PIL" in cases[name]["reply"][1], \
+                cases[name]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop(timeout=300)
+        http_thread.join(60)
+    assert not failures, failures
+    for name, i in bodies.items():
+        (s1, fmt_reply), (s2, png_reply) = replies[i], replies[i + 1]
+        assert s1 == s2 == 200, (name, s1, s2)
+        a, b = decode_png(fmt_reply, name), decode_png(png_reply, "twin")
+        assert a.shape == (HEIGHT, WIDTH, 3), a.shape
+        cases[name]["max_uint8_diff_vs_png_twin"] = int(np.abs(
+            a.astype(int) - b.astype(int)).max())
+        assert cases[name]["max_uint8_diff_vs_png_twin"] <= 1, cases[name]
+    n_batches = srv.stats["batches"]
+    assert n_batches == (1 if bodies else 0), srv.stats
+    norms = gn_sites(production_profile(), 1)
+    swish = sum(v for k, v in norms.items() if k[3])
+    want = ({"group_norm_bf16_swish": swish * steps * n_batches,
+             "group_norm_bf16": (sum(norms.values()) - swish) * steps
+             * n_batches,
+             "wavelet_dec": 2 * n_batches, "wavelet_rec": n_batches}
+            if n_batches else {})
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, ("serve formats", got, want)
+    for key, val in got.items():
+        launches[key] += val
+    for key in ("wavelet_dec", "wavelet_rec"):     # the 8-image rows
+        launches[f"{key}@8_images"] = launches.get(f"{key}@8_images",
+                                                   0) + got.get(key, 0)
+    return dict(requests=len(requests), batches=n_batches, formats=cases,
+                launches=got)
+
+
 def serve_phase(launches, rows):
     """Serving on the production profile (bfloat16, 10 steps, random
     weights from seed 61) at batch 8.
@@ -1162,11 +1348,11 @@ def serve_phase(launches, rows):
     import torch
 
     from wavedm_tpu_torch.config import production_profile
-    from wavedm_tpu_torch.data import native_loader
     from wavedm_tpu_torch.inference.loader import build_restorer
     from wavedm_tpu_torch.inference.server import RestorationServer
     from wavedm_tpu_torch.utils.images import (decode_image, decode_png,
-                                               encode_png, to_uint8)
+                                               encode_png, image_decoder,
+                                               to_uint8)
 
     def restorer(**parallel):
         cfg = production_profile()
@@ -1256,22 +1442,33 @@ def serve_phase(launches, rows):
         srv._decode(png)
     decode_ms = (time.perf_counter() - t) * 1e3 / SERVE_BURST
     # two of the burst's requests are RainDrop test image 0000 as the
-    # committed palette PNG and JPEG, each decoded here equal to PIL's
-    # committed decode; where the data library is unavailable a 15th
-    # synthetic PNG takes the JPEG's place, and the JPEG gets a 500
-    golden = os.path.join(ROOT, "tests", "golden", "images")
-    pil = np.load(os.path.join(golden, "decodes.npz"))
+    # committed palette PNG and JPEG, the palette PNG and a JPEG of the
+    # data library decoded here equal to PIL's committed decode (a JPEG
+    # through this machine's PIL is PIL's decode by construction; its
+    # equality with the committed one is reported); where neither the
+    # data library nor a PIL with the codec is here, a 15th synthetic PNG
+    # takes the JPEG's place, and the JPEG gets a 500 naming why
+    pil = np.load(os.path.join(GOLDEN, "decodes.npz"))
     encoded = {}
     for name in ("raindrop_0000_palette.png", "raindrop_0000.jpg"):
-        with open(os.path.join(golden, name), "rb") as f:
+        with open(os.path.join(GOLDEN, name), "rb") as f:
             encoded[name] = f.read()
-    jpeg_ok = native_loader.available()
+    jpeg_decoder = image_decoder(encoded["raindrop_0000.jpg"])[1]
+    try:
+        jpeg = decode_image(encoded["raindrop_0000.jpg"], "jpeg")
+        jpeg_ok = True
+    except ValueError as e:
+        assert "PIL is not installed" in str(e) or "codec" in str(e), e
+        jpeg_ok = False
+    jpeg_equal_committed = (bool(np.array_equal(jpeg, pil[
+        "raindrop_0000.jpg"])) if jpeg_ok else None)
     formats = ["raindrop_0000_palette.png"] + (
         ["raindrop_0000.jpg"] if jpeg_ok else [])
     format_ms, bodies = {}, pngs[:SERVE_BURST - len(formats)]
     for name in formats:
         img = decode_image(encoded[name], name)
-        assert np.array_equal(img, pil[name]), name
+        if image_decoder(encoded[name])[1] != "PIL":
+            assert np.array_equal(img, pil[name]), name
         t = time.perf_counter()             # as the PNGs' time: _decode
         for _ in range(3):
             srv._decode(encoded[name])
@@ -1352,16 +1549,16 @@ def serve_phase(launches, rows):
             raise AssertionError("a body that is not a PNG got a 200")
         except urllib.error.HTTPError as e:
             bad = e.code, e.read().decode()[:200]
-        assert bad[0] == 500 and "not a PNG, JPEG or BMP" in bad[1], bad
+        assert bad[0] == 500 and "PIL cannot identify it" in bad[1], bad
         jpeg_refused = None
         if not jpeg_ok:
             try:
                 post(encoded["raindrop_0000.jpg"], timeout=60)
-                raise AssertionError("a JPEG got a 200 without the library")
+                raise AssertionError("a JPEG got a 200 with no decoder")
             except urllib.error.HTTPError as e:
                 jpeg_refused = e.code, e.read().decode()[:400]
-            assert jpeg_refused[0] == 500 and "unavailable" in \
-                jpeg_refused[1], jpeg_refused
+            assert jpeg_refused[0] == 500 and "PIL" in jpeg_refused[1], \
+                jpeg_refused
         status, body, survivor_ms = post(pngs[1])
         assert status == 200, status
         replies.append(decode_png(body, "reply"))
@@ -1424,6 +1621,7 @@ def serve_phase(launches, rows):
     for key in ("wavelet_dec", "wavelet_rec"):
         launches[f"{key}@1_image"] = launches.get(f"{key}@1_image",
                                                   0) + one[key]
+    emit("serve", part="formats", **serve_formats(rest, steps, launches))
     del rest, expect
     torch.cuda.empty_cache()
     lat = sorted(r[2] for r in results)
@@ -1444,18 +1642,21 @@ def serve_phase(launches, rows):
          restore_image_batch1_ms=batch1_ms, survivor_ms=survivor_ms,
          host_decode_ms_per_request=decode_ms,
          host_decode_ms_by_file={"synthetic_png": decode_ms, **format_ms},
-         burst_formats=formats, jpeg_refused=jpeg_refused,
+         burst_formats=formats, jpeg_decoder=jpeg_decoder,
+         jpeg_equal_to_committed_pil_decode=jpeg_equal_committed,
+         jpeg_refused=jpeg_refused,
          host_encode_ms_per_request=encode_ms, warmup_s=warmup_s,
          peak_bytes=peak, max_uint8_diff_vs_direct=worst,
          bad_request=bad[0], launches=got, healthz=final)
 
 
-EVAL_PAIRS = 4
+EVAL_PAIRS = 2          # cut from 4 for the 5-minute cap
 
 
 def eval_phase(launches):
     """The evaluation entry points as a user runs them, on the production
-    profile with ``fused_groupnorm``: four synthetic 720x480 pairs written
+    profile with ``fused_groupnorm``: ``EVAL_PAIRS`` synthetic 720x480 pairs
+    written
     as PNG by the port's codec into a RainDrop-shaped tree (read back bit
     for bit), ``cli/eval_diffusion.main`` over them in batches of two with
     image dumps, and ``cli/restore.main`` over the inputs.  Each CLI run is
@@ -1757,7 +1958,7 @@ def timed_batches(it, waits):
         yield item
 
 
-DATA_STEPS = 6
+DATA_STEPS = 4          # cut from 6 for the 5-minute cap
 NATIVE_STEPS = 3
 
 
@@ -1916,7 +2117,7 @@ def train_data_phase(launches):
          batch_shape=list(firsts["streamed"].shape), native_stream=native)
 
 
-HFRM_STEPS = 4         # cut from 6 for the 5-minute cap
+HFRM_STEPS = 3         # cut from 6 (PR 15: 4) for the 5-minute cap
 
 
 def hfrm_step_on(device, weights=None):
@@ -2046,7 +2247,7 @@ def train_hfrm_phase():
     torch.cuda.empty_cache()
 
 
-def pipeline_phase(launches):
+def pipeline_phase(launches, keep=False):
     """Both stages and the scoring as a user chains them, in process, on
     the RainDrop test pairs standing in for the train split: 2 steps of
     ``cli.train_hfrm`` (full width, bfloat16 over float32 parameters);
@@ -2055,7 +2256,9 @@ def pipeline_phase(launches):
     checkpoint to ``cli.eval_diffusion --resume`` over 2 pairs
     (``fused_groupnorm``).  Each exits 0; each training run's and the
     eval's launches are counted and checked; the metrics are finite; the
-    restorer's HFRM holds the stage-1 file's weights."""
+    restorer's HFRM holds the stage-1 file's weights.  With ``keep`` the
+    checkpoints stay (the tools phase reads them); returns their paths
+    (UNet, HFRM) and their directory."""
     import contextlib
     import io
 
@@ -2147,12 +2350,154 @@ def pipeline_phase(launches):
              stdout={k: v["stdout"][-1] for k, v in out.items()})
     finally:
         loader.build_restorer = real_build
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
     del built
     torch.cuda.empty_cache()
+    return unet_ckpt, hfrm_ckpt, root
 
 
-VARIANT_STEPS = 2       # reverse steps of each variant restore (cut from 25)
+def tools_phase(launches, unet_ckpt, hfrm_ckpt):
+    """Every quality-loop tool (``wavedm_tpu_torch/tools/``) in process at
+    full width and a small depth, on the pipeline phase's checkpoints
+    (the production UNet and HFRM) and the RainDrop test pairs: the
+    synthetic dataset at 2 + 2 pairs; ``diag_quality`` on one test image
+    (2 steps); ``diag_teacher_forced`` on 4 crops; ``seed_study`` at 8
+    seeds and one batch of 8, both chains at 2 steps; the toy A/B for 20
+    steps; ``eval_sweep`` over two rows (2 steps, 1 image, float32 under
+    ``rehearsal_flagship``, whose UNet and HFRM are the production ones),
+    read back by ``summarize_sweep``; the dress rehearsal at 2 + 2 steps
+    and the rehearsal A/B's three arms at 1 step, evaluated on 1 image
+    under both protocols (both at the rehearsal
+    widths, through ``fused_resblock``).  Each exits 0 and prints finite
+    numbers; the restores' GroupNorm and wavelet launches are counted and
+    checked (exactly where a tool only restores, at least one of each
+    kernel where it also trains)."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.tools import (
+        diag_quality, diag_teacher_forced, dress_rehearsal, eval_sweep,
+        make_synthetic_dataset, seed_study, summarize_sweep, vpred_cpu_ab,
+        vpred_rehearsal_ab)
+
+    work = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    norms = gn_sites(production_profile(), 1)     # 45 with swish, 6 without
+    swish = sum(v for k, v in norms.items() if k[3])
+
+    def gn(tag, calls):
+        return {f"group_norm_{tag}_swish": swish * calls,
+                f"group_norm_{tag}": (sum(norms.values()) - swish) * calls}
+
+    gpu = ["--device", DEV]
+    fused_gn = ["--set", "parallel.fused_groupnorm=true"]
+    two_steps = ["--set", "sampling.sampling_timesteps=2",
+                 "--set", "sampling.x0_pred_index=-1"]
+    data = ["--set", "data.data_dir=" + os.path.join(
+        ROOT, "wavedm_tpu_torch", "_build", "smoke_data")]
+    ckpts = ["--resume", unet_ckpt, "--hfrm-ckpt", hfrm_ckpt]
+    rehearsal = os.path.join(work, "rehearsal")
+    rehearsal_kernels = ["--set", "parallel.fused_resblock=true"] + two_steps
+    trains = {"fused_gn_swish_conv_f32", "wavelet_dec", "wavelet_rec"}
+    runs = (
+        ("make_synthetic_dataset", make_synthetic_dataset.main, [
+            "--data-dir", os.path.join(work, "data"), "--n-train", "2",
+            "--n-test", "2"], {}),
+        ("diag_quality", diag_quality.main, [
+            "--config", "production"] + ckpts + [
+            "--split", "test", "--n", "1", "--sampling-timesteps", "2"]
+            + fused_gn + data + gpu,
+         {**gn("bf16", 2), "wavelet_dec": 3, "wavelet_rec": 4}),
+        ("diag_teacher_forced", diag_teacher_forced.main, [
+            "--config", "production"] + ckpts + ["--n-crops", "4"]
+            + fused_gn + data + gpu,
+         {**gn("bf16", len(diag_teacher_forced.T_LADDER)), "wavelet_dec": 3}),
+        ("seed_study", seed_study.main, [
+            "--seeds", "8", "--ckpt-dir",
+            os.path.dirname(unet_ckpt), "--hfrm-ckpt", hfrm_ckpt,
+            "--tstart-steps", "2", "--out",
+            os.path.join(work, "seed_study.json")] + two_steps + fused_gn
+            + gpu,
+         # two chains, each 8 batch-1 restores and one batch of 8
+         {**gn("bf16", 2 * 2 * 9), "wavelet_dec": 2 * 2 * 9,
+          "wavelet_rec": 2 * 9}),
+        ("vpred_cpu_ab", vpred_cpu_ab.main, [
+            "--steps", "20", "--out", os.path.join(work, "vpred_ab.json")]
+            + gpu, {}),
+        ("eval_sweep", eval_sweep.main, [
+            "--ckpt", unet_ckpt,
+            "--hfrm-ckpt", hfrm_ckpt, "--out", os.path.join(work, "sweep"),
+            "--rows", "full_chain,full_chain_ema", "--diag-n", "0",
+            "--eval-batch", "2"] + gpu + ["--"] + fused_gn + data
+            + two_steps + ["--n-images", "1"],
+         {**gn("f32", 2 * 2), "wavelet_dec": 2 * 2, "wavelet_rec": 2}),
+        ("summarize_sweep", summarize_sweep.main, [
+            "--dir", os.path.join(work, "sweep"), "--out",
+            os.path.join(work, "sweep_summary.json")], {}),
+        ("dress_rehearsal", dress_rehearsal.main, [
+            "--steps1", "2", "--steps2", "2", "--n-train", "2", "--n-test",
+            "2", "--work", rehearsal] + gpu + ["--"] + rehearsal_kernels,
+         trains),
+        ("vpred_rehearsal_ab", vpred_rehearsal_ab.main, [
+            "--steps", "1", "--hfrm-ckpt",
+            os.path.join(rehearsal, "hfrm", "lastest.pth.tar"),
+            "--data-dir", os.path.join(rehearsal, "data"), "--out",
+            os.path.join(work, "ab"), "--n-images", "1"] + gpu + ["--"]
+            + rehearsal_kernels, trains),
+    )
+    seconds, printed = {}, {}
+    try:
+        for name, main, argv, want in runs:
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                assert main(argv) == 0, name
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            got = {k: v for k, v in read_counts().items() if v}
+            if isinstance(want, set):       # trains as well: each kernel ran
+                assert set(got) == want, (name, got, want)
+            else:
+                assert got == want, (name, got, want)
+            for key, val in got.items():
+                launches[key] += val
+            text = buf.getvalue()
+            numbers = [float(x) for x in re.findall(
+                r"-?\b\d+\.\d+(?:e-?\d+)?|\bnan\b|\binf\b", text,
+                re.IGNORECASE)]
+            if name != "make_synthetic_dataset":
+                assert numbers and all(np.isfinite(numbers)), (name, text)
+            printed[name] = dict(launches=got, lines=text.splitlines()[-3:],
+                                 numbers=len(numbers))
+            torch.cuda.empty_cache()
+        summary = json.load(open(os.path.join(work, "sweep_summary.json")))
+        assert sorted(summary) == ["full_chain", "full_chain_ema"], summary
+        assert all(r["n_images"] == 1 for r in summary.values()), summary
+        seeds = json.load(open(os.path.join(work, "seed_study.json")))
+        assert (seeds["full_25step"]["b1"]["n"],
+                seeds["tstart300_10step"]["b8"]["n"]) == (8, 8), seeds
+        for arm in ("eps", "v", "eps_snr5"):
+            assert os.path.exists(os.path.join(work, "ab", f".done_{arm}"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("tools", seconds=seconds, total_s=sum(seconds.values()),
+         sweep_summary=summary, seed_study={
+             k: seeds[k] for k in ("full_25step", "tstart300_10step")},
+         note="pipeline checkpoints (2 steps from a random start) and "
+         "2-step chains: the metrics are not a quality number",
+         runs=printed)
+
+
+VARIANT_STEPS = 1       # reverse steps of each variant restore (cut from 25;
+                        # PR 15: 2)
 PIXEL_MB = 128          # patch_micro_batch of the 720x480 pixel restore
 SMALL = 256             # side of the pixel path's float32 image
 # UNet parameters at full width (the pixel, global and lap profiles)
@@ -3436,6 +3781,7 @@ def partial(phases, ref_cfg, prod_cfg):
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
     training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
+    ``tools`` (after ``pipeline``, whose checkpoints it reads),
     ``serve``, ``variants``, ``switches`` and ``multigpu``
     (``profiling`` runs alone: see :func:`main`)."""
     if "sweep" in phases:
@@ -3451,8 +3797,12 @@ def partial(phases, ref_cfg, prod_cfg):
         train_data_phase(scratch)
     if "train_hfrm" in phases:
         train_hfrm_phase()
-    if "pipeline" in phases:
-        pipeline_phase(scratch)
+    if "pipeline" in phases or "tools" in phases:
+        unet_ckpt, hfrm_ckpt, root = pipeline_phase(scratch,
+                                                    keep="tools" in phases)
+        if "tools" in phases:
+            tools_phase(scratch, unet_ckpt, hfrm_ckpt)
+            shutil.rmtree(root, ignore_errors=True)
     if "serve" in phases:
         serve_phase(scratch, {})
     if "variants" in phases:
@@ -3486,10 +3836,11 @@ def main(argv=None):
     ap.add_argument("--tree", help="import wavedm_tpu_torch from this "
                     "directory (a checkout of another commit) instead of the "
                     "script's own")
+    ap.add_argument("--gate", help=argparse.SUPPRESS)    # profiling child
     ap.add_argument("--phases", help="comma-separated subset of "
                     "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
-                    "serve,variants,switches,multigpu to run alone, or "
-                    "profiling by itself; no final lines")
+                    "tools,serve,variants,switches,multigpu to run alone, "
+                    "or profiling by itself; no final lines")
     args = ap.parse_args(argv)
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))
@@ -3503,6 +3854,11 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     if args.phases == "profiling":      # alone: no census, no data library
+        if args.gate:                   # the parent's build is done
+            t = time.perf_counter()
+            while not os.path.exists(args.gate):
+                assert time.perf_counter() - t < 300, "no build gate"
+                time.sleep(0.05)
         _build.library()
         profiling_phase()
         return 0
@@ -3521,6 +3877,19 @@ def main(argv=None):
 
     if not args.phases:
         start_multigpu()
+        # torch.profiler leaves each later launch of its process dearer on
+        # the host: the profiling phase runs in a child process, started
+        # now (its start-up beside nvcc), profiling once the build's gate
+        # opens, beside small_parity; done before the first timed phase
+        gate = os.path.join(BUILD_DIR, "profiling.gate")
+        if os.path.exists(gate):
+            os.remove(gate)
+        profiler = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phases",
+             "profiling", "--gate", gate]
+            + (["--tree", args.tree] if args.tree else []),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(profiler)
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3536,25 +3905,22 @@ def main(argv=None):
     built.result()
     _build.library()
     open_gates(".build")
+    if not args.phases:
+        with open(gate, "w") as f:
+            f.write("open\n")
     emit("build", waited_s=time.perf_counter() - t,
          nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
          ptxas=ptxas_report(_build.last_ptxas))
-    emit("native", **native.result())
+    pil, decoders = image_decoders()
+    emit("native", **native.result(), pil=pil, decoders=decoders)
 
     ref_cfg = reference_profile()
+    ref_cfg.sampling.sampling_timesteps = REF_STEPS
     prod_cfg = production_profile()
     for cfg in (ref_cfg, prod_cfg):
         cfg.parallel.fused_groupnorm = True
     if args.phases:
         return partial(set(args.phases.split(",")), ref_cfg, prod_cfg)
-    # torch.profiler leaves each later launch of its process dearer on the
-    # host: the profiling phase runs in a child process, beside
-    # small_parity, and is done before the first timed phase
-    profiler = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--phases", "profiling"]
-        + (["--tree", args.tree] if args.tree else []),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    CHILDREN.append(profiler)
     # checks alone, no timing: it may run beside the multigpu worlds'
     # start-up and the profiling child; the timed phases wait for them
     small_parity()
@@ -3661,7 +4027,7 @@ def main(argv=None):
     variants_phase(launches, rows)
     switches_phase(launches, rows)
 
-    # the reference profile (float32, TF32 off, 25 steps from noise) with
+    # the reference profile (float32, TF32 off, REF_STEPS from noise) with
     # the fused kernel at all 44 pairs, against the reference restore with
     # fused_groupnorm + cuDNN: the same weights (one seed draws one network
     # in either dtype), inputs and noise.  Float32 on both sides, so they
@@ -3670,6 +4036,7 @@ def main(argv=None):
     # 0.37 that this profile's bfloat16 run parts from its float32 one.
     ref_out, ref_ms = outs["reference"]
     fr_ref_cfg = reference_profile()
+    fr_ref_cfg.sampling.sampling_timesteps = REF_STEPS
     fr_ref_cfg.parallel.fused_resblock = True
     fr_ref_cfg.validate()
     fr_ref = build_restorer(fr_ref_cfg, None, None, device="cuda")
@@ -3713,9 +4080,11 @@ def main(argv=None):
     # both stages on real pairs, then chained as a user runs them
     train_data_phase(launches)
     train_hfrm_phase()
-    pipeline_phase(launches)
-    shutil.rmtree(os.path.join(ROOT, "wavedm_tpu_torch", "_build",
-                               "smoke_data"), ignore_errors=True)
+    unet_ckpt, hfrm_ckpt, root = pipeline_phase(launches, keep=True)
+    tools_phase(launches, unet_ckpt, hfrm_ckpt)
+    for path in (root, os.path.join(ROOT, "wavedm_tpu_torch", "_build",
+                                    "smoke_data")):
+        shutil.rmtree(path, ignore_errors=True)
     multigpu_phase(launches)
 
     for key, val in launches.items():

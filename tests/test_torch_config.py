@@ -11,7 +11,9 @@ import pytest
 from wavedm_tpu.config import load_config as jax_load_config
 
 from wavedm_tpu_torch.config import (ConfigError, Config, load_config,
-                                     production_profile, reference_profile)
+                                     production_profile, reference_profile,
+                                     rehearsal_flagship_profile,
+                                     rehearsal_profile)
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "wavedm_tpu", "configs")
@@ -35,6 +37,8 @@ TRAINING_ONLY = {("sampling", "batch_size"),
 @pytest.mark.parametrize("profile,name", [
     (reference_profile, "raindrop_wavelet.yaml"),
     (production_profile, "raindrop_wavelet_production.yaml"),
+    (rehearsal_profile, "rehearsal_wavelet.yaml"),
+    (rehearsal_flagship_profile, "rehearsal_flagship.yaml"),
 ])
 def test_profiles_match_their_yaml(profile, name):
     built = dataclasses.asdict(profile())
@@ -44,6 +48,16 @@ def test_profiles_match_their_yaml(profile, name):
         for key, value in built[section].items():
             if (section, key) not in TRAINING_ONLY:
                 assert value == loaded[section][key], (section, key)
+
+
+@pytest.mark.parametrize("profile,name", [
+    ("rehearsal", "rehearsal_wavelet.yaml"),
+    ("rehearsal_flagship", "rehearsal_flagship.yaml")])
+def test_rehearsal_profiles_equal_their_yaml_in_full(profile, name):
+    """The tools' built-in configs (no yaml needed) equal JAX's loads of
+    the YAML files they stand for, every key."""
+    assert dataclasses.asdict(load_config(profile)) == dataclasses.asdict(
+        jax_load_config(os.path.join(CONFIGS, name)))
 
 
 def test_validation_errors():

@@ -219,6 +219,45 @@ def test_global_attn_crops_are_refused(data_dir):
     assert totals.shape == (cfg.training.batch_size, 480, 720, 3)
 
 
+def test_webp_pairs_train_and_evaluate_as_jax(tmp_path, monkeypatch):
+    """A split of WebP pairs (lossy inputs, lossless ground truths) trains
+    and evaluates as JAX's PIL path reads it.  The port's default stream
+    is the PIL-order one even where the data library is available, since
+    the library decodes only PNG and JPEG; its device cache reads the
+    same pixels."""
+    rng = np.random.default_rng(3)
+    for split, n in (("train", 4), ("raindrop_test", 2)):
+        for i in range(n):
+            for folder, name, kw in (("input", f"{i}_rain.webp",
+                                      {"quality": 85}),
+                                     ("gt", f"{i}_clean.webp",
+                                      {"lossless": True})):
+                path = tmp_path / "raindrop" / split / folder / name
+                path.parent.mkdir(parents=True, exist_ok=True)
+                Image.fromarray(rng.integers(0, 256, (H, W, 3),
+                                             dtype=np.uint8)).save(path, **kw)
+    monkeypatch.setattr(raindrop.native_loader, "available", lambda: True)
+    jcfg, cfg = _configs(_raw(str(tmp_path)))
+    want = list(jax_raindrop.RainDrop(jcfg).train_batches(
+        0, prefetch=False, use_native=False))
+    got = list(raindrop.RainDrop(cfg).train_batches(0))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    cached = list(raindrop.RainDrop(config_from_dict(_raw(
+        str(tmp_path), device_cache=True)), device="cpu").train_batches(0))
+    for g, w in zip(cached, want):
+        assert np.array_equal(np.asarray(g), w)
+    ours = list(raindrop.RainDrop(cfg).eval_samples())
+    theirs = list(jax_raindrop.RainDropDataset(
+        os.path.join(str(tmp_path), "raindrop", "raindrop_test"), 32, 2,
+        parse_patches=False).epoch(0, 0, shuffle=False))
+    assert [i for _, i in ours] == [i for _, i in theirs] == ["0_rain",
+                                                              "1_rain"]
+    for (a, _), (b, _) in zip(ours, theirs):
+        assert a.shape == (480, 720, 6) and np.array_equal(a, b)
+
+
 def test_eval_samples_stripe_over_processes(data_dir):
     _, cfg = _configs(_raw(data_dir))
     ids = [[i for _, i in raindrop.RainDrop(cfg, k, 2).eval_samples()]

@@ -231,6 +231,18 @@ def test_eval_cli_in_process(capsys, tmp_path, source):
                                                                       720, 3)
 
 
+def test_eval_cli_takes_jax_test_set_flag(capsys):
+    """``--test-set raindrop``, which JAX's script accepts and reads
+    nowhere, is accepted and changes nothing."""
+    base = ["--config", "production", "--device", "cpu", "--smoke",
+            "--n-images", "1"] + TINY
+    got = []
+    for extra in ([], ["--test-set", "raindrop"]):
+        assert eval_diffusion.main(base + extra) == 0
+        got.append(_metric_lines(capsys.readouterr().out))
+    assert len(got[0]) == 4 and got[0] == got[1]
+
+
 def test_eval_cli_refuses_an_orbax_directory(tmp_path):
     with pytest.raises(NotImplementedError, match="cli.convert_orbax"):
         eval_diffusion.main(["--config", "production", "--device", "cpu",
@@ -238,11 +250,11 @@ def test_eval_cli_refuses_an_orbax_directory(tmp_path):
 
 
 def test_restore_cli_in_process(tmp_path):
-    """Three 48x64 images at native geometry in batches of two, a PNG, a
-    JPEG and a BMP, from the port's own checkpoint (EMA) and a
-    reference-style HFRM file: the outputs are the restorer's own images
-    of PIL's decodes for that generator.  A WebP beside them is not
-    listed."""
+    """Four 48x64 images at native geometry in batches of two, a PNG, a
+    JPEG, a BMP and a WebP (listed, as JAX's script lists it), from the
+    port's own checkpoint (EMA) and a reference-style HFRM file: the
+    outputs are the restorer's own images of PIL's decodes for that
+    generator.  A text file beside them is not listed."""
     from PIL import Image
 
     cfg_path = tmp_path / "mini.yaml"
@@ -265,12 +277,13 @@ def test_restore_cli_in_process(tmp_path):
     ind.mkdir()
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
-            for _ in range(3)]
+            for _ in range(4)]
     write_png(str(ind / "img0.png"), imgs[0])
     Image.fromarray(imgs[1]).save(str(ind / "img1.jpg"), quality=90)
     Image.fromarray(imgs[2]).save(str(ind / "img2.bmp"))
-    Image.fromarray(imgs[2]).save(str(ind / "img3.webp"))
+    Image.fromarray(imgs[3]).save(str(ind / "img3.webp"))
     imgs[1] = np.asarray(Image.open(str(ind / "img1.jpg")).convert("RGB"))
+    imgs[3] = np.asarray(Image.open(str(ind / "img3.webp")).convert("RGB"))
     (ind / "notes.txt").write_text("not an image")
 
     assert restore_cli.main([
@@ -280,7 +293,7 @@ def test_restore_cli_in_process(tmp_path):
         "--device", "cpu"]) == 0
     outs = sorted(os.listdir(tmp_path / "out"))
     assert outs == ["img0_restored.png", "img1_restored.png",
-                    "img2_restored.png"]
+                    "img2_restored.png", "img3_restored.png"]
 
     rest = build_restorer(cfg, ckpt, hfrm_path, device="cpu", ema=True)
     gen = torch.Generator().manual_seed(cfg.training.seed)
@@ -293,17 +306,16 @@ def test_restore_cli_in_process(tmp_path):
 
 
 def test_restore_cli_refuses_other_formats(tmp_path):
-    """A file of a format the port does not read, named by its path, is
-    refused naming the format (a directory does not list it)."""
-    from PIL import Image
-
-    path = str(tmp_path / "photo.webp")
-    Image.fromarray(np.zeros((48, 64, 3), np.uint8)).save(path)
-    with pytest.raises(ValueError, match="WebP is not supported") as err:
+    """A file neither package reads (no image PIL can identify), named by
+    its path, is refused naming the file and why (a directory does not
+    list it)."""
+    path = str(tmp_path / "photo.pcx")
+    open(path, "wb").write(b"\x00" * 64 + b"not an image")
+    with pytest.raises(ValueError, match="PIL cannot identify it") as err:
         restore_cli.main(["--config", "production", "--input", path,
                           "--out", str(tmp_path / "out"), "--no-resize",
                           "--device", "cpu"] + TINY)
-    assert "photo.webp" in str(err.value)
+    assert "photo.pcx" in str(err.value)
 
 
 def test_restore_cli_restores_a_jpeg(tmp_path):

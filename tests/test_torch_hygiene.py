@@ -48,6 +48,12 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         for name in ("native", "native.build", "data.native_loader",
                      "utils.profiling"):
             assert "wavedm_tpu_torch." + name in names, name
+        # and the quality-loop tools
+        for name in ("make_synthetic_dataset", "diag_quality",
+                     "diag_teacher_forced", "seed_study", "vpred_cpu_ab",
+                     "summarize_sweep", "eval_sweep", "dress_rehearsal",
+                     "vpred_rehearsal_ab"):
+            assert "wavedm_tpu_torch.tools." + name in names, name
         import torch
         from wavedm_tpu_torch.models.sam import SAM
         from wavedm_tpu_torch.models.vgg_loss import VGG19Features
@@ -165,6 +171,29 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         srv.stop(timeout=60)
         assert decode_png(reply).shape == (32, 32, 3)
         assert srv.stats["served"] == 1 and srv.stats["errors"] == 0
+        # a WebP body needs PIL: without it the reason is named
+        try:
+            srv._decode(open(os.path.join("tests", "golden", "images",
+                                          "rain_q80.webp"), "rb").read())
+        except ValueError as e:
+            assert "PIL is not installed" in str(e), e
+        else:
+            raise AssertionError("a WebP decoded without PIL")
+        # the tools that need no device: the synthetic dataset (the port's
+        # PNG writer) and the sweep summary
+        from wavedm_tpu_torch.tools import (make_synthetic_dataset,
+                                            summarize_sweep)
+        assert make_synthetic_dataset.main([
+            "--data-dir", os.path.join(tmp, "syn"), "--n-train", "1",
+            "--n-test", "1", "--severity", "light"]) == 0
+        assert read_png(os.path.join(tmp, "syn", "raindrop", "train", "gt",
+                                     "0000.png")).shape == (480, 720, 3)
+        os.makedirs(os.path.join(tmp, "sweep"))
+        with open(os.path.join(tmp, "sweep", "row.log"), "w") as f:
+            f.write("psnr all torch 20.5 ssim all 0.5 (2 images)")
+        assert summarize_sweep.main([
+            "--dir", os.path.join(tmp, "sweep"),
+            "--out", os.path.join(tmp, "summary.json")]) == 0
         assert acquire_gpu_lock("hygiene", device="cpu")
         try:
             convert_orbax_checkpoint(tmp, os.path.join(tmp, "x"), cfg)

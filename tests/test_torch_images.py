@@ -1,16 +1,20 @@
-"""PyTorch port: the PIL-free image readers, PNG writer and LANCZOS
-resize against PIL (imported here only; the port never imports it).
+"""PyTorch port: the image readers, PNG writer and LANCZOS resize against
+PIL (imported here; the port imports it only to decode the formats it
+has no decoder of its own for).
 
 ``read_png`` must equal PIL's ``Image.open(p).convert("RGB")`` exactly, on
 the RainDrop test split and on PNGs built here with every row filter,
 colour type, bit depth and interlacing (a tiny encoder of this file writes
 the Adam7 and 16-bit files PIL cannot).  ``read_image`` must equal it on
-BMPs and on JPEGs (through the port's data library), and refuse other
-formats by name.  ``resize_lanczos`` must equal ``Image.resize(size,
+BMPs, on JPEGs (through the port's data library, or PIL without it), and
+on WebP, GIF and TIFF (through PIL), and refuse with the reason a body PIL
+cannot identify, a machine without PIL and a PIL without the codec.
+``resize_lanczos`` must equal ``Image.resize(size,
 Image.LANCZOS)`` exactly (no grey level off), shrinking, enlarging and at
 odd sizes.
 """
 
+import builtins
 import glob
 import os
 import struct
@@ -24,8 +28,8 @@ from wavedm_tpu.data.raindrop import eval_resize_dims as jax_eval_resize_dims
 
 from wavedm_tpu_torch.data.raindrop import eval_resize_dims
 from wavedm_tpu_torch.native import build as native_build
-from wavedm_tpu_torch.utils.images import (decode_image, make_grid,
-                                           read_image, read_png,
+from wavedm_tpu_torch.utils.images import (decode_image, image_decoder,
+                                           make_grid, read_image, read_png,
                                            resize_lanczos, save_image,
                                            to_uint8, write_png)
 
@@ -324,27 +328,139 @@ def test_read_image_takes_jpeg_as_pil(name):
     np.testing.assert_array_equal(ours, _pil_rgb(path))
 
 
-def test_jpeg_without_the_data_library_raises_the_reason(monkeypatch):
+def _no_data_library(monkeypatch):
     monkeypatch.setattr(native_build, "unavailable_reason",
                         lambda: "jpeglib.h not found by c++")
+
+
+def _block_pil(monkeypatch):
+    real = builtins.__import__
+
+    def fake(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(f"No module named {name!r} (blocked)")
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", fake)
+
+
+def test_jpeg_without_the_data_library_raises_the_reason(monkeypatch):
+    """Where the data library is unavailable a JPEG is PIL's to decode
+    (the rule of ``image_decoder``): the committed JPEG decodes equal to
+    PIL's committed decode.  With PIL blocked as well it raises naming
+    both reasons (``test_jpeg_without_either_decoder_names_both``)."""
+    _no_data_library(monkeypatch)
+    data = open(os.path.join(GOLDEN, "rain_q90_420.jpg"), "rb").read()
+    assert image_decoder(data) == ("JPEG", "PIL")
+    np.testing.assert_array_equal(
+        decode_image(data, "photo.jpg"),
+        np.load(os.path.join(GOLDEN, "decodes.npz"))["rain_q90_420.jpg"])
+
+
+def test_jpeg_without_either_decoder_names_both(monkeypatch):
+    _no_data_library(monkeypatch)
+    _block_pil(monkeypatch)
     data = open(os.path.join(GOLDEN, "rain_q90_420.jpg"), "rb").read()
     with pytest.raises(ValueError, match="jpeglib.h not found") as err:
         decode_image(data, "photo.jpg")
     assert "photo.jpg" in str(err.value)
+    assert "PIL is not installed" in str(err.value)
+
+
+def test_jpeg_takes_the_data_library_where_it_is_available():
+    data = open(os.path.join(GOLDEN, "rain_q90_420.jpg"), "rb").read()
+    assert image_decoder(data) == ("JPEG", "data library")
+
+
+def test_a_data_library_error_is_not_retried_through_pil():
+    """A JPEG cut short: the data library refuses it from memory, as PIL
+    does, and that error is what the caller gets."""
+    data = open(os.path.join(GOLDEN, "rain_q90_420.jpg"), "rb").read()
+    with pytest.raises(ValueError, match="data library") as err:
+        decode_image(data[:len(data) // 2], "cut.jpg")
+    assert "cut.jpg" in str(err.value) and "PIL" not in str(err.value)
 
 
 @pytest.mark.parametrize("fmt,field", [
-    ("WEBP", "WebP is not supported"), ("GIF", "GIF is not supported"),
-    ("TIFF", "not a PNG, JPEG or BMP"), ("text", "not a PNG, JPEG or BMP")])
+    ("WEBP", "WebP"), ("GIF", "GIF"), ("TIFF", "TIFF"),
+    ("text", "PIL cannot identify it")],
+    # the ids these cases had when they pinned the refusals
+    ids=["WEBP-WebP is not supported", "GIF-GIF is not supported",
+         "TIFF-not a PNG, JPEG or BMP", "text-not a PNG, JPEG or BMP"])
 def test_read_image_refuses_other_formats_by_name(tmp_path, fmt, field):
+    """WebP, GIF and TIFF decode through PIL equal to PIL's decode (these
+    cases once pinned their refusal); a file that is no image is refused
+    naming the file."""
     path = str(tmp_path / f"x.{fmt.lower()}")
     if fmt == "text":
         open(path, "wb").write(b"not an image")
-    else:
-        Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path, fmt)
-    with pytest.raises(ValueError, match=field) as err:
-        read_image(path)
-    assert os.path.basename(path) in str(err.value)
+        with pytest.raises(ValueError, match=field) as err:
+            read_image(path)
+        assert os.path.basename(path) in str(err.value)
+        return
+    rgb = np.random.default_rng(len(fmt)).integers(0, 256, (4, 4, 3),
+                                                   dtype=np.uint8)
+    Image.fromarray(rgb).save(path, fmt)
+    assert image_decoder(open(path, "rb").read()) == (field, "PIL")
+    np.testing.assert_array_equal(read_image(path), _pil_rgb(path))
+
+
+@pytest.mark.parametrize("name", ["rain_q80.webp", "rain_lossless.webp",
+                                  "rain_rgba.webp", "rain.gif", "rain.tif"])
+def test_read_image_takes_pil_formats_as_pil(name):
+    """The committed 40x64 WebP (lossy, lossless, RGBA), GIF and TIFF
+    equal PIL's committed decodes of them."""
+    path = os.path.join(GOLDEN, name)
+    ours = read_image(path)
+    assert ours.dtype == np.uint8 and ours.shape == (40, 64, 3)
+    np.testing.assert_array_equal(ours, _pil_rgb(path))
+    np.testing.assert_array_equal(
+        ours, np.load(os.path.join(GOLDEN, "decodes.npz"))[name])
+    if name == "rain_lossless.webp":          # lossless: the crop itself
+        crop = read_png(os.path.join(REPO, "data", "raindrop",
+                                     "raindrop_test", "input",
+                                     "0000.png"))[200:240, 300:364]
+        np.testing.assert_array_equal(ours, crop)
+
+
+def test_a_gif_gives_its_first_frame(tmp_path):
+    frames = [Image.fromarray(np.full((6, 8, 3), v, np.uint8))
+              for v in (10, 200)]
+    path = str(tmp_path / "anim.gif")
+    frames[0].save(path, save_all=True, append_images=frames[1:])
+    np.testing.assert_array_equal(read_image(path), np.full((6, 8, 3), 10,
+                                                             np.uint8))
+
+
+def test_webp_without_pil_raises_naming_why(monkeypatch):
+    _block_pil(monkeypatch)
+    data = open(os.path.join(GOLDEN, "rain_q80.webp"), "rb").read()
+    with pytest.raises(ValueError, match="PIL is not installed") as err:
+        decode_image(data, "photo.webp")
+    assert "photo.webp" in str(err.value) and "WebP" in str(err.value)
+
+
+@pytest.mark.parametrize("name,codec", [("rain_q80.webp", "webp"),
+                                        ("rain_q90_420.jpg", "jpg")])
+def test_a_pil_without_the_codec_raises_naming_it(monkeypatch, name, codec):
+    from PIL import features
+
+    if codec == "jpg":
+        _no_data_library(monkeypatch)
+    real = features.check
+    monkeypatch.setattr(features, "check",
+                        lambda f: False if f == codec else real(f))
+    data = open(os.path.join(GOLDEN, name), "rb").read()
+    with pytest.raises(ValueError, match=f"without the {codec} codec") as err:
+        decode_image(data, name)
+    assert name in str(err.value)
+
+
+def test_a_truncated_webp_raises_naming_the_file():
+    data = open(os.path.join(GOLDEN, "rain_q80.webp"), "rb").read()
+    with pytest.raises(ValueError) as err:
+        decode_image(data[:len(data) // 2], "cut.webp")
+    assert "cut.webp" in str(err.value)
 
 
 @pytest.mark.parametrize("src,dst", [

@@ -142,22 +142,30 @@ def test_decode_equals_jax(mode, h, w, no_resize):
 
 
 def test_decode_refuses_what_is_not_png():
-    """A body of a format the port does not read is refused by name (JAX's
-    PIL would take the GIF); JPEG and BMP are taken
-    (``test_decode_takes_jpeg_palette_and_bmp_as_jax``)."""
+    """A GIF body, once refused, is taken as JAX's PIL takes it; a body
+    that is no image is refused naming the request body and why (JPEG,
+    BMP, WebP and TIFF: ``test_decode_takes_jpeg_palette_and_bmp_as_jax``,
+    ``test_decode_takes_pil_formats_as_jax``)."""
     buf = io.BytesIO()
     Image.fromarray(_image("RGB", 8, 8)).save(buf, "GIF")
     srv = server.RestorationServer(None)
-    for body, field in ((buf.getvalue(), "GIF is not supported"),
-                        (b"not an image", "not a PNG, JPEG or BMP")):
-        with pytest.raises(ValueError, match=field) as err:
-            srv._decode(body)
-        assert "request body" in str(err.value)
-        assert "only PNG, JPEG and BMP" in str(err.value)
+    assert np.array_equal(srv._decode(buf.getvalue()),
+                          jax_server.RestorationServer(None)._decode(
+                              buf.getvalue()))
+    with pytest.raises(ValueError, match="PIL cannot identify it") as err:
+        srv._decode(b"not an image")
+    assert "request body" in str(err.value)
+
+
+PIL_FORMATS = {"webp_lossy": ("WEBP", {"quality": 80}),
+               "webp_lossless": ("WEBP", {"lossless": True}),
+               "webp_rgba": ("WEBP", {"lossless": True}),
+               "gif": ("GIF", {}), "tiff": ("TIFF", {})}
 
 
 def _encoded(fmt):
-    """A 32x48 RainDrop crop as ``fmt``: a JPEG, a palette PNG or a BMP."""
+    """A 32x48 RainDrop crop as ``fmt``: a JPEG, a palette PNG, a BMP, or
+    one of ``PIL_FORMATS``."""
     img = decode_png(open(os.path.join(
         REPO, "data", "raindrop", "raindrop_test", "input", "0000.png"),
         "rb").read())[200:232, 300:348]
@@ -165,6 +173,12 @@ def _encoded(fmt):
     if fmt == "palette":
         Image.fromarray(img).convert("P", palette=Image.ADAPTIVE).save(
             buf, "PNG")
+    elif fmt in PIL_FORMATS:
+        name, kw = PIL_FORMATS[fmt]
+        if fmt == "webp_rgba":
+            img = np.dstack([img, np.arange(32 * 48, dtype=np.uint8)
+                             .reshape(32, 48)])
+        Image.fromarray(img).save(buf, name, **kw)
     else:
         Image.fromarray(img).save(buf, fmt)
     return buf.getvalue()
@@ -176,6 +190,20 @@ def _encoded(fmt):
 def test_decode_takes_jpeg_palette_and_bmp_as_jax(fmt, no_resize):
     """The port's ``_decode`` of a JPEG (the data library), a palette PNG
     and a BMP body equals JAX's PIL ``_decode``, resized or not."""
+    body = _encoded(fmt)
+    ours = server.RestorationServer(None, no_resize=no_resize)._decode(body)
+    theirs = jax_server.RestorationServer(None, no_resize=no_resize)._decode(
+        body)
+    assert ours.dtype == theirs.dtype == np.float32
+    assert np.array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("fmt", list(PIL_FORMATS))
+@pytest.mark.parametrize("no_resize", [False, True],
+                         ids=["lanczos_to_720x480", "native"])
+def test_decode_takes_pil_formats_as_jax(fmt, no_resize):
+    """WebP (lossy, lossless, RGBA), GIF and TIFF bodies: the port's
+    ``_decode`` through PIL equals JAX's, resized or not."""
     body = _encoded(fmt)
     ours = server.RestorationServer(None, no_resize=no_resize)._decode(body)
     theirs = jax_server.RestorationServer(None, no_resize=no_resize)._decode(
@@ -358,7 +386,7 @@ def test_http_restore_health_and_survival(tiny_server):
             urllib.request.urlopen(req, timeout=60)
         assert err.value.code == (500 if data else 404)
         if data:
-            assert b"only PNG" in err.value.read()
+            assert b"PIL cannot identify it" in err.value.read()
     _post(port, body, results)          # the device owner survived
     assert results[-1][0] == 200
 
@@ -367,6 +395,23 @@ def test_http_restore_health_and_survival(tiny_server):
 def test_http_restores_jpeg_palette_and_bmp_bodies(tiny_server, fmt):
     """A JPEG, a palette-PNG and a BMP body are decoded as PIL decodes
     them and answered 200 with a PNG of their geometry."""
+    srv, port = tiny_server
+    body = _encoded(fmt)
+    assert np.array_equal(srv._decode(body),
+                          _pil_decode(body).astype(np.float32) / 255.0)
+    results = []
+    _post(port, body, results)
+    status, png = results[0]
+    assert status == 200
+    out = decode_png(png)
+    assert out.dtype == np.uint8 and out.shape == (32, 48, 3)
+
+
+@pytest.mark.parametrize("fmt", list(PIL_FORMATS))
+def test_http_restores_pil_format_bodies(tiny_server, fmt):
+    """WebP (lossy, lossless, RGBA), GIF and TIFF bodies over HTTP are
+    decoded as PIL decodes them and answered 200 with a PNG of their
+    geometry."""
     srv, port = tiny_server
     body = _encoded(fmt)
     assert np.array_equal(srv._decode(body),

@@ -80,6 +80,17 @@ RAW = {
 N_CROPS = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the suite runs several pytest-xdist workers on
+    a few cores, where this file's small ops on a thread per core ran its
+    cases ~10x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _raw(**sections):
     raw = copy.deepcopy(RAW)
     for name, values in sections.items():

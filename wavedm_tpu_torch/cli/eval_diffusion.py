@@ -56,6 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--init-ll", default=None,
                    choices=["hfrm", "cond", "noise"],
                    help="LL source noised to t_start (sampling.init_ll)")
+    p.add_argument("--test-set", default="raindrop",
+                   help="accepted as JAX's script accepts it; read by "
+                        "nothing (the RainDrop test split is the one set)")
     p.add_argument("--smoke", action="store_true",
                    help="Synthetic pairs instead of the RainDrop test split")
     p.add_argument("--ema", action="store_true",

@@ -1,4 +1,4 @@
-"""Restore degraded PNG, JPEG or BMP images (no ground truth needed).
+"""Restore degraded images (no ground truth needed).
 
 The port's counterpart of ``scripts/restore.py``: decode, the canonical
 720x480 eval resize (PIL's LANCZOS, in numpy), geometry-bucketed batches,
@@ -12,10 +12,12 @@ the on-device restoration, PNG outputs ``{name}_restored.png``.
 global-attention (``raindrop_wavelet_global.yaml``) paths; only the
 wavelet path reads ``--hfrm-ckpt``.  The Laplacian path
 (``raindrop_lap.yaml``) restores from [cond | gt] pairs and is refused
-here (``cli/eval_diffusion.py`` runs it).  Inputs are PNG, JPEG or BMP
-(``utils/images.read_image``; a directory lists those extensions, and a
-file of another format named by a glob or path raises naming it; JPEG
-needs the port's data library).  Without ``--resume`` the weights are
+here (``cli/eval_diffusion.py`` runs it).  Inputs are any image JAX's PIL
+reads (``utils/images.read_image``: PNG and BMP in numpy, JPEG through
+the port's data library or PIL, WebP, GIF, TIFF and the rest through
+PIL); a directory lists the extensions JAX's script lists (.png, .jpg,
+.jpeg, .bmp, .webp), and a file named by a glob or path is read whatever
+its name, or raises naming why.  Without ``--resume`` the weights are
 random (seeded).  Runs on the card unless ``--device`` names another.
 """
 
@@ -42,7 +44,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Diffusion checkpoint (random weights without it)")
     p.add_argument("--hfrm-ckpt", default="")
     p.add_argument("--input", required=True,
-                   help="PNG/JPEG/BMP file, directory, or glob")
+                   help="image file, directory, or glob")
     p.add_argument("--out", required=True, help="Output directory")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--ema", action="store_true")
@@ -67,7 +69,8 @@ def list_inputs(spec: str) -> List[str]:
     if os.path.isdir(spec):
         return sorted(
             os.path.join(spec, f) for f in os.listdir(spec)
-            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")))
+            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp",
+                                   ".webp")))
     if any(ch in spec for ch in "*?["):
         return sorted(glob.glob(spec))
     return [spec]

@@ -18,9 +18,10 @@ path reads ``--hfrm-ckpt``).  ``--resume`` / ``--hfrm-ckpt`` take reference
 ``.pth``/``.pth.tar`` files, the port's own checkpoints, or a file
 converted from the JAX package's Orbax checkpoints
 (``cli/convert_orbax.py``); ``--resume ''`` serves random (seeded)
-weights.  Requests are PNG, JPEG or BMP (``utils/images.decode_image``;
-JPEG needs the port's data library).  Runs on the card unless ``--device``
-names another.
+weights.  Requests are any image JAX's PIL opens
+(``utils/images.decode_image``: PNG and BMP in numpy, JPEG through the
+port's data library or PIL, everything else through PIL).  Runs on the
+card unless ``--device`` names another.
 
 Patch-parallel serving, one process per card:
 

@@ -409,6 +409,41 @@ def lap_profile() -> Config:
     return cfg.validate()
 
 
+def rehearsal_profile() -> Config:
+    """``rehearsal_wavelet.yaml``: the reference protocol at a reduced
+    scale (UNet ch 64, ch_mult 1,2,4, one res block; HFRM dim 16, one
+    block a level), on the device crop cache: the dress rehearsal's."""
+    cfg = Config()
+    cfg.data.device_cache = True
+    cfg.model = ModelConfig(use_gt_in_train=False, ch=64, ch_mult=(1, 2, 4),
+                            num_res_blocks=1)
+    cfg.training = TrainingConfig(patch_n=4, batch_size=2, n_epochs=100000,
+                                  snapshot_freq=2000,
+                                  validation_freq=1000000)
+    cfg.optim.lr = 0.0002
+    cfg.hfrm = HFRMConfig(dim=16, enc_blk_nums=(1, 1, 1, 1),
+                          middle_blk_num=1, dec_blk_nums=(1, 1, 1, 1),
+                          batch_size=2, n_epochs=100000, best_psnr_init=10.0)
+    return cfg.validate()
+
+
+def rehearsal_flagship_profile() -> Config:
+    """``rehearsal_flagship.yaml``: the flagship UNet and HFRM trained on
+    the synthetic rehearsal split (2 x 8 crops a step at lr 1e-4, HFRM
+    conditioning, HFRM with remat); the eval sweep's config."""
+    cfg = Config()
+    cfg.data.device_cache = True
+    cfg.model.use_gt_in_train = False
+    cfg.training = TrainingConfig(batch_size=2, n_epochs=100000,
+                                  snapshot_freq=2500,
+                                  validation_freq=1000000)
+    cfg.optim.lr = 0.0001
+    cfg.hfrm = HFRMConfig(remat=True, batch_size=2, n_epochs=100000,
+                          best_psnr_init=10.0)
+    return cfg.validate()
+
+
 PROFILES = {"reference": reference_profile, "production": production_profile,
             "pixel": pixel_profile, "global": global_profile,
-            "lap": lap_profile}
+            "lap": lap_profile, "rehearsal": rehearsal_profile,
+            "rehearsal_flagship": rehearsal_flagship_profile}

@@ -1,10 +1,11 @@
-"""Paired input/gt image folders, read without PIL.
+"""Paired input/gt image folders.
 
 The port of ``wavedm_tpu/data/folder.py``: sorted ``input/`` and ``gt/``
 listings, an optional random crop shared by both images of a pair, an
 optional BILINEAR resize (``utils/images.resize_bilinear``), and under a
 root whose path names "raindrop" the 720x480 enforcement when neither is
-on.  Images are PNG, JPEG or BMP (``utils/images.read_image``).
+on.  Images are whatever ``utils/images.read_image`` reads: what JAX's
+PIL opens.
 """
 
 from __future__ import annotations

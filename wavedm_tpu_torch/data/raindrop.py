@@ -2,8 +2,10 @@
 
 The port of ``wavedm_tpu/data/raindrop.py``.  The splits live in
 ``<data_dir>/raindrop/{train,raindrop_test}/{input,gt}/``; a ground-truth
-name is its input's name with "rain" replaced by "clean".  Images are PNG,
-JPEG or BMP (``utils/images.read_image``).
+name is its input's name with "rain" replaced by "clean".  Every file in
+``input/`` is listed, as JAX lists it, and read by
+``utils/images.read_image``: PNG, BMP, JPEG, and WebP, GIF, TIFF and the
+rest through PIL, as JAX's PIL reads them.
 
 - Train: :meth:`RainDrop.train_batches` yields (batch * patch_n, P, P, 6)
   float32 [input | gt] crop batches in [0, 1] from one of three paths,
@@ -12,11 +14,13 @@ JPEG or BMP (``utils/images.read_image``).
   1. ``data.device_cache`` (and not ``data.global_attn``): the decoded
      split on the device, cropped there (``data/device_cache.py``);
   2. the native crop stream, by default wherever the port's data library
-     is built or builds (``data/native_loader.py``) and
-     ``data.global_attn`` is off: each batch of the shuffled order is
-     decoded and cropped by native threads, the crops of slot k drawn from
-     ``mt19937_64(Mix(batch seed, k))``, the batch seed folding in (seed,
-     epoch, batch start).  Its batches equal the JAX package's native
+     is built or builds (``data/native_loader.py``), ``data.global_attn``
+     is off and every file of this process's stripe is a PNG or a JPEG,
+     the two formats the library decodes (JAX picks its native stream
+     without that check, and it then fails on a WebP pair): each batch of
+     the shuffled order is decoded and cropped by native threads, the
+     crops of slot k drawn from ``mt19937_64(Mix(batch seed, k))``, the
+     batch seed folding in (seed, epoch, batch start).  Its batches equal the JAX package's native
      stream to the byte, and differ from the other two paths' by design;
   3. otherwise (or ``use_native=False``) the streamed PIL-order path: each
      sample draws ``patch_n`` crops from a generator seeded with (seed,
@@ -65,6 +69,18 @@ def _list_pairs(root: str) -> Tuple[List[str], List[str]]:
     inputs = [os.path.join(inp_dir, f) for f in names]
     gts = [os.path.join(gt_dir, f.replace("rain", "clean")) for f in names]
     return inputs, gts
+
+
+def _native_reads(paths: List[str]) -> bool:
+    """Whether every file is a PNG or a JPEG by its signature: the formats
+    the data library's crop stream decodes."""
+    for path in paths:
+        with open(path, "rb") as f:
+            head = f.read(8)
+        if not (head.startswith(b"\x89PNG\r\n\x1a\n")
+                or head.startswith(b"\xff\xd8")):
+            return False
+    return True
 
 
 def eval_resize_dims(w: int, h: int) -> Tuple[int, int]:
@@ -257,8 +273,11 @@ class RainDrop:
             return
         if use_native is None:
             # the native stream has crops only: the global path's totals
-            # keep it on the PIL-order path
-            use_native = native_loader.available() and not use_global
+            # keep it on the PIL-order path, as do formats it cannot decode
+            use_native = (not use_global and native_loader.available()
+                          and _native_reads(
+                              [p for i in ds.indices
+                               for p in (ds.inputs[i], ds.gts[i])]))
         if use_native:
             it = self._native_batches(ds, epoch, bs)
         else:

@@ -7,7 +7,7 @@ the results back out; the HTTP side is the standard library's
 ``http.server``.
 
 Endpoints:
-  POST /restore     PNG, JPEG or BMP bytes -> restored PNG bytes
+  POST /restore     image bytes (what JAX's PIL opens) -> restored PNG bytes
   GET  /healthz     JSON: served/batch stats, queue depth
 
 As in JAX: requests are grouped only with same-shape peers, a mixed queue
@@ -22,12 +22,15 @@ Differences from JAX, by design:
   listens with the standard library's 5: a burst of more concurrent
   requests than that has connections dropped and retried about a second
   later, which splits a burst that should fill one batch.
-- Requests are decoded by ``utils/images.decode_image`` without PIL: PNG
-  of every encoding and BMP in numpy, JPEG through the port's data
-  library (libjpeg; a machine without libjpeg's headers cannot build it,
-  and there a JPEG is answered 500 with the reason).  JAX's PIL also
-  takes WebP, GIF and the rest; here any other body is answered 500 with
-  a ``ValueError`` naming its format.
+- Requests are decoded by ``utils/images.decode_image``: PNG of every
+  encoding and BMP in numpy, JPEG through the port's data library
+  (libjpeg) where it is available and through PIL where it is not (a
+  machine without libjpeg's headers cannot build the library), and WebP,
+  GIF (its first frame), TIFF and every other format through PIL, as
+  JAX's server opens every body.  So the server takes what JAX's takes;
+  a body PIL cannot identify, or a format whose codec this machine's PIL
+  lacks (or no PIL at all), is answered 500 with a ``ValueError`` naming
+  why, where JAX's answers 500 with PIL's error.
 - A restorer on the Laplacian path is refused with a ``ValueError``: it
   restores from a [cond | gt] pair, and a request carries no ground truth
   (JAX's server would fail on each request instead).
@@ -259,7 +262,7 @@ class RestorationServer:
     # ------------------------------------------------------------ HTTP side
 
     def _decode(self, body: bytes) -> np.ndarray:
-        """PNG, JPEG or BMP bytes -> (h, w, 3) float32 in [0, 1] at the
+        """Image bytes -> (h, w, 3) float32 in [0, 1] at the
         serving geometry: the eval protocol's 720x480 (LANCZOS), or with
         ``no_resize`` the image's own size rounded up to /16."""
         return restore_input(decode_image(body, "request body"),

@@ -1,17 +1,24 @@
-"""Image I/O without PIL: a PNG reader and writer and a BMP reader on
-``zlib``/``struct`` and numpy, JPEG through the port's data library, PIL's
-LANCZOS and BILINEAR resamples in numpy, and the dump helpers of
+"""Image I/O: a PNG reader and writer and a BMP reader on ``zlib``/``struct``
+and numpy, JPEG through the port's data library, every other format
+through PIL (imported only when such a file comes), PIL's LANCZOS and
+BILINEAR resamples in numpy, and the dump helpers of
 ``wavedm_tpu/utils/images.py``.
 
 Every reader returns (H, W, 3) uint8 RGB equal to PIL's
-``Image.open(...).convert("RGB")``, which the JAX package's server and
-restore CLI use; errors are ``ValueError`` naming the file and the field.
+``Image.open(...).convert("RGB")``, which the JAX package's server, data
+path and restore CLI use; errors are ``ValueError`` naming the file and
+the reason.
 
-- ``decode_image`` (``read_image`` for a file) dispatches on the
-  signature: PNG, JPEG (``FF D8``) and BMP (``BM``).  WebP, GIF and
-  anything else are refused.  JPEG is decoded by libjpeg in the port's
-  data library (``data/native_loader.decode_bytes``); where that library
-  cannot be built, a JPEG raises with the reason.
+- ``decode_image`` (``read_image`` for a file) picks the decoder by the
+  signature, by a fixed rule (:func:`image_decoder` says which):
+  PNG (every encoding) and BMP by the port's numpy decoders; JPEG
+  (``FF D8``) by libjpeg in the port's data library
+  (``data/native_loader.decode_bytes``) wherever that library is
+  available, and by PIL where it is not; everything else by PIL, as JAX
+  opens it: WebP (lossy, lossless, with alpha), GIF (its first frame),
+  TIFF and the rest.  A file that PIL cannot identify, a machine without
+  PIL, and a PIL built without the format's codec each raise naming why;
+  an error of the data library on a JPEG is raised, not retried by PIL.
 - ``decode_png`` (``read_png`` for a file) takes every PNG: colour types
   0 (grey at 1, 2, 4, 8 or 16 bits), 2 (RGB), 3 (palette at 1, 2, 4 or 8
   bits; an index past the PLTE reads black), 4 (grey + alpha) and 6
@@ -38,6 +45,7 @@ clipping to uint8.
 
 from __future__ import annotations
 
+import io
 import math
 import os
 import struct
@@ -47,8 +55,9 @@ from typing import Sequence, Tuple
 import numpy as np
 
 __all__ = ["to_uint8", "save_image", "make_grid", "read_image",
-           "decode_image", "read_png", "write_png", "decode_png",
-           "encode_png", "decode_bmp", "resize_lanczos", "resize_bilinear"]
+           "decode_image", "image_decoder", "read_png", "write_png",
+           "decode_png", "encode_png", "decode_bmp", "resize_lanczos",
+           "resize_bilinear"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples a pixel
@@ -308,38 +317,95 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 # ------------------------------------------------------- by the signature
 
+# formats PIL reads only with an optional codec: its ``features`` name
+_PIL_CODECS = {"JPEG": "jpg", "WebP": "webp"}
+
+
+def _format(data: bytes) -> str:
+    """The format a signature names (``other``: left to PIL to identify)."""
+    if data.startswith(_PNG_SIGNATURE):
+        return "PNG"
+    if data.startswith(b"BM"):
+        return "BMP"
+    if data.startswith(b"\xff\xd8"):
+        return "JPEG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    return "other"
+
+
+def image_decoder(data: bytes) -> Tuple[str, str]:
+    """(format, decoder) of what :func:`decode_image` does with ``data``:
+    ``numpy`` for PNG and BMP, ``data library`` for JPEG where
+    ``native_loader.unavailable_reason()`` is None, else ``PIL``."""
+    fmt = _format(data)
+    if fmt in ("PNG", "BMP"):
+        return fmt, "numpy"
+    if fmt == "JPEG":
+        from wavedm_tpu_torch.data import native_loader
+
+        if native_loader.unavailable_reason() is None:
+            return fmt, "data library"
+    return fmt, "PIL"
+
+
+def _decode_pil(data: bytes, name: str, fmt: str, why: str) -> np.ndarray:
+    """PIL's ``Image.open(...)``, converted to RGB where its mode is not,
+    as the JAX package opens every image; ``why`` says why PIL decodes
+    this format here, for the errors."""
+    try:
+        from PIL import Image, UnidentifiedImageError, features
+    except ImportError as e:
+        raise ValueError(f"{name}: {why}, and PIL is not installed "
+                         f"({e})") from e
+    import PIL
+
+    codec = _PIL_CODECS.get(fmt)
+    if codec is not None and not features.check(codec):
+        raise ValueError(f"{name}: {why}, and this PIL ({PIL.__version__}) "
+                         f"was built without the {codec} codec")
+    try:
+        img = Image.open(io.BytesIO(data))
+        img = img.convert("RGB") if img.mode != "RGB" else img
+        return np.asarray(img, dtype=np.uint8).copy()
+    except UnidentifiedImageError as e:
+        raise ValueError(f"{name}: not a PNG, BMP or JPEG by its signature "
+                         f"({data[:8]!r}), and PIL cannot identify it") from e
+    except (OSError, SyntaxError, ValueError) as e:
+        raise ValueError(f"{name}: PIL failed to decode this {fmt} file: "
+                         f"{e}") from e
+
+
 def read_image(path: str) -> np.ndarray:
-    """A PNG, JPEG or BMP file -> (H, W, 3) uint8 RGB
-    (:func:`decode_image`)."""
+    """An image file -> (H, W, 3) uint8 RGB (:func:`decode_image`)."""
     with open(path, "rb") as f:
         return decode_image(f.read(), path)
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The bytes of a PNG, JPEG or BMP -> (H, W, 3) uint8 RGB, by the
-    signature; errors name ``name``."""
-    if data.startswith(_PNG_SIGNATURE):
+    """The bytes of an image -> (H, W, 3) uint8 RGB, decoded as
+    :func:`image_decoder` says; errors name ``name``."""
+    fmt, decoder = image_decoder(data)
+    if fmt == "PNG":
         return decode_png(data, name)
-    if data.startswith(b"\xff\xd8"):
+    if fmt == "BMP":
+        return decode_bmp(data, name)
+    if decoder == "data library":
         from wavedm_tpu_torch.data import native_loader
 
-        reason = native_loader.unavailable_reason()
-        if reason is not None:
-            raise ValueError(f"{name}: JPEG is decoded by the port's data "
-                             f"library, which is unavailable here: {reason}")
         return native_loader.decode_bytes(data, name)
-    if data.startswith(b"BM"):
-        return decode_bmp(data, name)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        kind = "WebP"
-    elif data[:6] in (b"GIF87a", b"GIF89a"):
-        kind = "GIF"
+    if fmt == "JPEG":
+        from wavedm_tpu_torch.data import native_loader
+
+        why = ("JPEG is decoded by PIL where the port's data library is "
+               f"unavailable, as here: {native_loader.unavailable_reason()}")
     else:
-        raise ValueError(f"{name}: not a PNG, JPEG or BMP file (signature "
-                         f"{data[:8]!r}); only PNG, JPEG and BMP are "
-                         "supported")
-    raise ValueError(f"{name}: {kind} is not supported; only PNG, JPEG and "
-                     "BMP are")
+        why = f"{'this file' if fmt == 'other' else fmt} is decoded by PIL"
+    return _decode_pil(data, name, fmt, why)
 
 
 # ------------------------------------------------------------ PNG writer
