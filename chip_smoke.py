@@ -26,7 +26,12 @@ Phases, each printing one JSON line with its elapsed seconds:
                     there costs the host more)
                     ``utils/profiling.trace`` and ``annotate`` around one
                     DWT kernel call: the trace file holds the annotated
-                    region; its device kernel events are counted
+                    region; its device kernel events are counted.  Then
+                    one production UNet forward (bfloat16, 90 patches)
+                    traced under ``fused_groupnorm`` and under
+                    ``fused_resblock`` and read by ``tools/trace_summary``:
+                    each of the port's kernel families counts as many
+                    launch events as the launch counts grew by
   kernels           every CUDA kernel of the paths against its plain PyTorch
                     version at the main paths' shapes, timed beside the plain
                     version, one PyTorch library call and its bound; the
@@ -117,12 +122,21 @@ Phases, each printing one JSON line with its elapsed seconds:
                     on the pipeline's checkpoints at full width and a
                     small depth: the synthetic dataset (2 + 2 pairs), the
                     per-band diagnostic (one image, 2 steps), the
-                    teacher-forced probe (4 crops), the seed study (8
+                    teacher-forced probe (4 crops), the seed study (4
                     seeds, both chains at 2 steps), the toy eps-vs-v A/B
                     (20 steps), an eval sweep of two rows read back by
                     summarize_sweep, the dress rehearsal (2 + 2 steps) and
                     the rehearsal A/B's three arms (1 step); each exits 0
-                    with finite numbers, launches counted
+                    with finite numbers, launches counted.  Then the
+                    measuring tools: the roofline of the production
+                    forward (bfloat16, 90 patches, 3 timed calls) under no
+                    kernel, ``fused_groupnorm`` and ``fused_resblock``
+                    (flops and XLA-convention flops the same under all
+                    three, 90 times one patch's), and the training MFU of
+                    the ``train`` phase's two steps at their measured
+                    ms/step (flops the same without a kernel and through
+                    ``fused_resblock``), beside the card's name and power
+                    limit
   variants          the three variant paths of the shipped configs at full
                     width (chains cut to 2 steps): the pixel path on one
                     720x480 image (874 patches of 128x128, micro-batches of
@@ -194,14 +208,17 @@ import subprocess
 import sys
 import time
 
-MEM_BW = 3.35e12           # H100 SXM device memory, bytes/s
+CARD = "NVIDIA H100 80GB HBM3"  # the card of the bounds (tools/roofline.PEAKS)
 L2_BYTES = 50 * 2 ** 20    # its L2 cache
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, no TF32 / tensor cores
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
 SEED = 61
 DEV = "cuda"               # the card (the switches phase names it so)
 TRAIN_STEPS = 3           # cut from 5 for the 5-minute cap
 REF_STEPS = 5   # the reference profile's restores (its own 25, x0_preds[-5])
+# timed calls of a plain version or a library call beside a GroupNorm or
+# fused kernel (cut from 10-20 for the 5-minute cap: those calls take 2-27
+# times the kernel's, and CUDA events time them back to back)
+COMPARE_ITERS = 3
 HFRM_PARAMS = 15_941_667   # HFRM at full width: dim 32, 2,2,2,4 / 6 / 2,2,2,2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -211,14 +228,6 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase,
                       "s": round(time.perf_counter() - T0, 3), **fields}),
           flush=True)
-
-
-def nvidia_smi():
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -305,9 +314,33 @@ def wall_ms(fn, iters=20):
     return (time.perf_counter() - t) * 1e3 / iters
 
 
+def card_figures():
+    """The bounds' card's dense peaks by compute dtype and its memory rate
+    (``bytes_per_s``): ``tools/roofline.PEAKS``, the tools' own."""
+    from wavedm_tpu_torch.tools.roofline import PEAKS
+
+    return PEAKS[CARD]
+
+
 def bound_ms(*tensors):
     """Least time to read the inputs once and write the outputs once."""
-    return sum(t.numel() * t.element_size() for t in tensors) / MEM_BW * 1e3
+    return bytes_ms(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def bytes_ms(nbytes):
+    return nbytes / card_figures()["bytes_per_s"] * 1e3
+
+
+def ops_ms(flops, dtype):
+    """Least time for ``flops`` at the card's dense peak for ``dtype``."""
+    return flops / card_figures()[str(dtype).split(".")[-1]] * 1e3
+
+
+def gn_bound_ms(gn, x, swish):
+    """GroupNorm's bound on ``x``: the bytes its launch declares."""
+    n, c = x.shape[:2]
+    return bytes_ms(gn.declared_work(n, c, x[0, 0].numel(), 32, swish,
+                                     x.dtype)[2])
 
 
 def ptxas_report(text):
@@ -520,10 +553,10 @@ def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
                                                      swish))
                 d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
                                                          swish), xs)
-                p_ms = time_ms(lambda: gn.group_norm_plain(xs, wt, bs, 32,
-                                                           1e-6, swish))
-                l_ms = time_ms(lib)
-                b_ms = bound_ms(xs, y)
+                p_ms = time_ms(lambda: gn.group_norm_plain(
+                    xs, wt, bs, 32, 1e-6, swish), COMPARE_ITERS, 1)
+                l_ms = time_ms(lib, COMPARE_ITERS, 1)
+                b_ms = gn_bound_ms(gn, xs, swish)
                 emit(phase, kernel=f"group_norm_{name}",
                      shape=[n_patches, c, h, w], count_per_forward=count,
                      max_abs_err=float(diff.max()), ms=k_ms, device_ms=d_ms,
@@ -622,16 +655,15 @@ def fused_at(gen, sites, n, dtype, tag, tol, row, key="", iters=10,
         d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
             t, sg, bg, wk, b, dtype), x, iters, 1)
         p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
-            x, sg, bg, wk, b, dtype), iters, 1)
-        l_ms = time_ms(lib, iters, 1)
-        out_bytes = n * cout * h * w * x.element_size()
-        b_ms = (bound_ms(x, sg, bg, wk, b) + out_bytes / MEM_BW * 1e3)
-        o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
+            x, sg, bg, wk, b, dtype), min(iters, COMPARE_ITERS), 1)
+        l_ms = time_ms(lib, min(iters, COMPARE_ITERS), 1)
+        flops, _, nbytes = fr.declared_work(x.shape, cout, x.dtype, dtype)
+        b_ms, o_ms = bytes_ms(nbytes), ops_ms(flops, dtype)
         emit(phase, kernel=f"fused_gn_swish_conv_{tag}",
              shape=[n, cin, h, w, cout], count_per_forward=count,
              max_rel_err=rel, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
              library_ms=l_ms, bytes_ms=b_ms, ops_ms=o_ms,
-             tflops=2.0 * n * h * w * 9 * cin * cout / k_ms / 1e9)
+             tflops=flops / k_ms / 1e9)
         for name, val in (("ms", k_ms), ("device_ms", d_ms),
                           ("plain_ms", p_ms), ("library_ms", l_ms),
                           ("bytes_ms", b_ms), ("ops_ms", o_ms)):
@@ -762,10 +794,19 @@ def profiling_phase():
     """``utils/profiling.trace`` with ``annotate`` around one DWT kernel
     call on two 720x480 images: the Chrome trace must hold the annotated
     region; how many of its events are device kernels says whether
-    torch.profiler's CUPTI tracing sees the card on this machine."""
+    torch.profiler's CUPTI tracing sees the card on this machine.  Then
+    one production UNet forward (bfloat16, two images' 90 patches) traced
+    under ``fused_groupnorm`` and under ``fused_resblock`` and read by
+    ``tools/trace_summary``: each of the port's kernel families counts as
+    many launch events as ``launch_counts()`` grew by, and the card was
+    busy."""
     import torch
 
+    from wavedm_tpu_torch.config import production_profile
+    from wavedm_tpu_torch.inference.loader import build_unet
+    from wavedm_tpu_torch.ops import launch_counts
     from wavedm_tpu_torch.ops.wavelet_cuda import wavelet_dec_cuda
+    from wavedm_tpu_torch.tools import trace_summary
     from wavedm_tpu_torch.utils.profiling import annotate, trace
 
     log_dir = os.path.join(ROOT, "wavedm_tpu_torch", "_build", "smoke_trace")
@@ -789,6 +830,51 @@ def profiling_phase():
     emit("profiling", trace_s=trace_s, events=len(events),
          device_kernel_events=sum(e.get("cat") == "kernel" for e in events),
          device_kernels=kernels[:6])
+
+    # the family of each launch_counts() key, as trace_summary names them
+    family = {"wavelet": "wavelet", "group_norm": "group_norm",
+              "fused_gn_swish_conv": "fused_conv"}
+    n = N_IMAGES * 45
+    for route in ("fused_groupnorm", "fused_resblock"):
+        cfg = production_profile()
+        setattr(cfg.parallel, route, True)
+        cfg.validate()
+        unet = build_unet(cfg, None, "cuda")
+        xs = torch.randn(n, 96, 64, 64, device="cuda")
+        ts = torch.zeros(n, device="cuda")
+        with torch.no_grad():
+            unet(xs, ts)
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t = time.perf_counter()
+            with trace(log_dir):
+                unet(xs, ts)
+                torch.cuda.synchronize()
+            trace_s = time.perf_counter() - t
+        grew = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+        try:
+            summary = trace_summary.summarize(
+                trace_summary.find_trace(log_dir), top=5)
+            text = trace_summary.report(summary)
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        assert text is not None and summary["busy_us"] > 0, summary["seen"]
+        want = dict.fromkeys(family.values(), 0)
+        for key, val in grew.items():
+            fam = next(f for p, f in family.items() if key.startswith(p))
+            want[fam] += val
+        got = {f: v["launch_events"] for f, v in summary["families"].items()}
+        assert got == want, (route, got, want, grew)
+        emit("profiling", tool="trace_summary", route=route, patches=n,
+             dtype="bfloat16", trace_s=trace_s, launches=grew,
+             family_launch_events=got, families=summary["families"],
+             device_events=summary["events"],
+             busy_ms=summary["busy_us"] / 1e3,
+             by_category_ms={c: t / 1e3 for c, t in summary["by_category"]},
+             top_ms=[[k[:80], t / 1e3] for k, t in summary["top"]])
+        del unet, xs
+        torch.cuda.empty_cache()
 
 
 def synthetic_images(seed, n=N_IMAGES):
@@ -978,7 +1064,8 @@ def check_whole_image_kernels(cfg):
 
             d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
                                                      swish), x)
-            l_ms, b_ms = time_ms(lib), bound_ms(x, y)
+            l_ms = time_ms(lib, COMPARE_ITERS, 1)
+            b_ms = gn_bound_ms(gn, x, swish)
             emit("kernels", kernel=f"group_norm_{tag}", sites="whole_image",
                  shape=[n, c, h, w], swish=swish, count_per_forward=count,
                  max_abs_err=float(diff.max()), device_ms=d_ms,
@@ -1016,9 +1103,10 @@ def check_whole_image_kernels(cfg):
 
             d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
                 t, sg, bg, wk, b, dtype), x, iters, 1)
-            l_ms = time_ms(lib, iters, 1)
-            by_ms = bound_ms(x, sg, bg, wk, b, y)
-            o_ms = 2.0 * n * h * w * 9 * cin * cout / PEAK_FLOPS[tag] * 1e3
+            l_ms = time_ms(lib, min(iters, COMPARE_ITERS), 1)
+            flops, _, nbytes = fr.declared_work(x.shape, cout, x.dtype,
+                                                dtype)
+            by_ms, o_ms = bytes_ms(nbytes), ops_ms(flops, dtype)
             emit("kernels", kernel=f"fused_gn_swish_conv_{tag}",
                  sites="whole_image", shape=[n, cin, h, w, cout],
                  count_per_forward=count, max_rel_err=rel, device_ms=d_ms,
@@ -1055,7 +1143,7 @@ def counted_restore(rest, images, want, name, launches=None):
     return out, first_ms, got
 
 
-WHOLE_STEPS = 5         # the whole-image chain's steps (cut from 10)
+WHOLE_STEPS = 3         # the whole-image chain's steps (cut from 10)
 
 
 def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
@@ -1163,6 +1251,11 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
 
 
 SERVE_BATCH, SERVE_BURST, SERVE_WINDOW_MS = 8, 16, 500.0
+# the formats burst's window: its handlers decode under one interpreter
+# lock, and the 16-request burst's decodes ended up to 420 ms apart on an
+# H100 machine's host, where one formats burst split at 500 ms; a burst of
+# SERVE_BATCH requests fills the batch before a wider window ends
+FORMATS_WINDOW_MS = 2000.0
 
 
 class RecordingRestorer:
@@ -1242,7 +1335,7 @@ def serve_formats(rest, steps, launches):
     noise = torch.randn((1, 3, HEIGHT // 4, WIDTH // 4), generator=gen,
                         device=rest.device)
     srv = RestorationServer(SameNoise(rest, noise), batch=SERVE_BATCH,
-                            window_ms=SERVE_WINDOW_MS, rng_seed=SEED)
+                            window_ms=FORMATS_WINDOW_MS, rng_seed=SEED)
     httpd = srv.serve("127.0.0.1", 0)
     url = f"http://127.0.0.1:{httpd.server_address[1]}/restore"
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1819,7 +1912,7 @@ def train_parity():
 def train_profile(name, cfg, n_crops, hfrm_sd):
     """DiffusionTrainer.fit at flagship width on synthetic crops, then one
     more step by hand for the EMA check and a save/resume round trip.
-    Returns the launch counts of the counted run."""
+    Returns (the launch counts of the counted run, its steady ms/step)."""
     import itertools
 
     import torch
@@ -1908,7 +2001,34 @@ def train_profile(name, cfg, n_crops, hfrm_sd):
          save_s=save_s, resume_s=resume_s)
     del trainer
     torch.cuda.empty_cache()
-    return counts
+    return counts, steady_ms
+
+
+def train_phase(launches):
+    """Stage-2 training at flagship width through the fused kernel, both
+    profiles (:func:`train_profile`); returns their steady ms/step."""
+    import torch
+
+    from wavedm_tpu_torch.config import production_profile, reference_profile
+    from wavedm_tpu_torch.inference.loader import build_hfrm
+
+    ref_train = reference_profile()
+    prod_train = production_profile()
+    for cfg in (ref_train, prod_train):
+        cfg.parallel.fused_resblock = True
+        cfg.validate()
+    hfrm_train = build_hfrm(prod_train, None, "cuda").state_dict()
+    step_ms = {}
+    for name, cfg, hfrm in (("reference", ref_train, None),
+                            ("production", prod_train, hfrm_train)):
+        n_crops = cfg.training.batch_size * cfg.training.patch_n
+        counts, step_ms[name] = train_profile(name, cfg, n_crops, hfrm)
+        for key, val in counts.items():
+            if val:
+                launches[key] += val
+    del hfrm_train
+    torch.cuda.empty_cache()
+    return step_ms
 
 
 def smoke_data_dir():
@@ -2357,13 +2477,17 @@ def pipeline_phase(launches, keep=False):
     return unet_ckpt, hfrm_ckpt, root
 
 
-def tools_phase(launches, unet_ckpt, hfrm_ckpt):
+SEED_STUDY_SEEDS = 4    # the seed study's batch-1 seeds (cut from 8)
+
+
+def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
     """Every quality-loop tool (``wavedm_tpu_torch/tools/``) in process at
     full width and a small depth, on the pipeline phase's checkpoints
     (the production UNet and HFRM) and the RainDrop test pairs: the
     synthetic dataset at 2 + 2 pairs; ``diag_quality`` on one test image
-    (2 steps); ``diag_teacher_forced`` on 4 crops; ``seed_study`` at 8
-    seeds and one batch of 8, both chains at 2 steps; the toy A/B for 20
+    (2 steps); ``diag_teacher_forced`` on 4 crops; ``seed_study`` at
+    ``SEED_STUDY_SEEDS`` seeds and one batch of 8, both chains at 2 steps;
+    the toy A/B for 20
     steps; ``eval_sweep`` over two rows (2 steps, 1 image, float32 under
     ``rehearsal_flagship``, whose UNet and HFRM are the production ones),
     read back by ``summarize_sweep``; the dress rehearsal at 2 + 2 steps
@@ -2419,14 +2543,16 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt):
             + fused_gn + data + gpu,
          {**gn("bf16", len(diag_teacher_forced.T_LADDER)), "wavelet_dec": 3}),
         ("seed_study", seed_study.main, [
-            "--seeds", "8", "--ckpt-dir",
+            "--seeds", str(SEED_STUDY_SEEDS), "--ckpt-dir",
             os.path.dirname(unet_ckpt), "--hfrm-ckpt", hfrm_ckpt,
             "--tstart-steps", "2", "--out",
             os.path.join(work, "seed_study.json")] + two_steps + fused_gn
             + gpu,
-         # two chains, each 8 batch-1 restores and one batch of 8
-         {**gn("bf16", 2 * 2 * 9), "wavelet_dec": 2 * 2 * 9,
-          "wavelet_rec": 2 * 9}),
+         # two chains, each SEED_STUDY_SEEDS batch-1 restores and one
+         # batch of 8
+         {**gn("bf16", 2 * 2 * (SEED_STUDY_SEEDS + 1)),
+          "wavelet_dec": 2 * 2 * (SEED_STUDY_SEEDS + 1),
+          "wavelet_rec": 2 * (SEED_STUDY_SEEDS + 1)}),
         ("vpred_cpu_ab", vpred_cpu_ab.main, [
             "--steps", "20", "--out", os.path.join(work, "vpred_ab.json")]
             + gpu, {}),
@@ -2483,7 +2609,8 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt):
         assert all(r["n_images"] == 1 for r in summary.values()), summary
         seeds = json.load(open(os.path.join(work, "seed_study.json")))
         assert (seeds["full_25step"]["b1"]["n"],
-                seeds["tstart300_10step"]["b8"]["n"]) == (8, 8), seeds
+                seeds["tstart300_10step"]["b8"]["n"]) == (SEED_STUDY_SEEDS,
+                                                          8), seeds
         for arm in ("eps", "v", "eps_snr5"):
             assert os.path.exists(os.path.join(work, "ab", f".done_{arm}"))
     finally:
@@ -2494,6 +2621,136 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt):
          note="pipeline checkpoints (2 steps from a random start) and "
          "2-step chains: the metrics are not a quality number",
          runs=printed)
+    measuring_tools(launches, step_ms)
+
+
+ROOFLINE_ITERS = 3
+
+
+def roofline_rows(launches):
+    """``tools/roofline.measure`` on the production forward (bfloat16, two
+    images' 90 patches, ``ROOFLINE_ITERS`` timed calls) through each
+    route: ``flops`` and ``xla_flops`` the same under every route, and
+    ``flops`` 90 times one patch's (counted on the meta device); each
+    route's kernel launches exact, and its declared launches those of the
+    counted call.  Returns {route: measure's dict}."""
+    import torch
+
+    from wavedm_tpu_torch.config import reference_profile
+    from wavedm_tpu_torch.tools import roofline
+    from wavedm_tpu_torch.utils.work import count_work
+
+    cfg = reference_profile()
+    unet, x = unet_body(cfg, 1)
+    one = count_work(unet, x, torch.empty(1, device="meta"))
+    del unet, x
+    norms = gn_sites(cfg, 1)
+    swish = sum(v for k, v in norms.items() if k[3])
+    per_call = {"plain": {},
+                "fused_groupnorm": {
+                    "group_norm_bf16_swish": swish,
+                    "group_norm_bf16": sum(norms.values()) - swish},
+                "fused_resblock": {"fused_gn_swish_conv_bf16": sum(
+                    fused_sites(cfg, 1).values())}}
+    calls = ROOFLINE_ITERS + 2                # a warm, the counted, timed
+    out = {}
+    for route in roofline.ROUTES:
+        reset_counts()
+        r = roofline.measure(N_IMAGES, "bfloat16", ROOFLINE_ITERS, route,
+                             DEV)
+        got = {k: v for k, v in read_counts().items() if v}
+        assert got == {k: v * calls for k, v in per_call[route].items()}, (
+            route, got)
+        assert r["kernels"] == {"kernel:" + k: v for k, v in
+                                per_call[route].items()}, (route, r)
+        for key, val in got.items():
+            launches[key] += val
+        out[route] = r
+        torch.cuda.empty_cache()
+    first = out["plain"]
+    for r in out.values():
+        assert (r["flops"], r["xla_flops"]) == (first["flops"],
+                                                first["xla_flops"]), out
+    assert first["flops"] == N_IMAGES * 45 * one.flops, (first, one.flops)
+    return out, one
+
+
+def train_mfu_rows(launches, step_ms):
+    """``tools/train_mfu`` in process for the ``train`` phase's two
+    profiles, each at that phase's measured ms/step and through the route
+    it timed (``fused_resblock``) and the plain one (the GroupNorm kernel
+    takes no gradient, so ``fused_groupnorm`` cannot train): the
+    production step (bfloat16, 16 crops, the frozen HFRM's conditioning,
+    ``rehearsal_flagship``'s own) and the reference one (float32, 8 crops,
+    ground-truth conditioning).  Flops identical under both routes;
+    launches exact.  Returns {profile: {route: the tool's JSON}}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from wavedm_tpu_torch.config import reference_profile
+    from wavedm_tpu_torch.tools import train_mfu
+
+    pairs = sum(fused_sites(reference_profile(), 1).values())     # 44
+    steps = {"production": ["--dtype", "bfloat16"],
+             "reference": ["--dtype", "float32", "--batch-size", "1",
+                           "--set", "model.use_gt_in_train=true"]}
+    out = {}
+    for name, argv in steps.items():
+        dwt = 2 if name == "reference" else 3
+        tag = "bf16" if name == "production" else "f32"
+        out[name] = {}
+        for route in ("plain", "fused_resblock"):
+            fused = route == "fused_resblock"
+            buf = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = train_mfu.main(argv + [
+                    "--step-time", str(step_ms[name] / 1e3), "--device",
+                    DEV, "--set",
+                    f"parallel.fused_resblock={str(fused).lower()}"])
+            assert rc == 0, (name, route)
+            got = {k: v for k, v in read_counts().items() if v}
+            want = {"wavelet_dec": dwt}
+            if fused:
+                want[f"fused_gn_swish_conv_{tag}"] = pairs
+            assert got == want, (name, route, got, want)
+            for key, val in got.items():
+                launches[key] += val
+            out[name][route] = json.loads(buf.getvalue().splitlines()[-1])
+            torch.cuda.empty_cache()
+        a, b = out[name]["plain"], out[name]["fused_resblock"]
+        assert (a["train_flops_per_step"], a["train_xla_flops_per_step"]) \
+            == (b["train_flops_per_step"], b["train_xla_flops_per_step"]), (
+                name, a, b)
+        assert b["train_mfu"] is not None and 0 < b["train_mfu"] < 1, b
+    return out
+
+
+def measuring_tools(launches, step_ms):
+    """The measuring tools on the card: the roofline of the production
+    forward under each route, and the training MFU of the ``train``
+    phase's steps (when that phase ran: ``step_ms``); the card's name and
+    power limit beside their figures.  ``trace_summary`` runs in the
+    profiling child (:func:`profiling_phase`)."""
+    t = time.perf_counter()
+    roof, one = roofline_rows(launches)
+    for route, r in roof.items():
+        emit("tools", tool="roofline", **{k: v for k, v in r.items()
+                                          if k != "kernels"})
+    emit("tools", tool="roofline", part="one patch, meta device",
+         flops_per_patch=one.flops, xla_flops_per_patch=one.xla_flops,
+         seconds=time.perf_counter() - t)
+    if step_ms is None:
+        emit("tools", tool="train_mfu", skipped="no train phase in this run")
+        return
+    t = time.perf_counter()
+    for name, routes in train_mfu_rows(launches, step_ms).items():
+        for route, r in routes.items():
+            emit("tools", tool="train_mfu", profile=name, route=route,
+                 step_ms=step_ms[name], **r)
+    emit("tools", tool="train_mfu", seconds=time.perf_counter() - t)
 
 
 VARIANT_STEPS = 1       # reverse steps of each variant restore (cut from 25;
@@ -2593,8 +2850,9 @@ def gn_row(gen, sites, n, dtype, tag, swish, phase, timed=True):
                     device_ms=device_ms(lambda t: gn.group_norm(
                         t, wt, bs, 32, 1e-6, swish), x, 10),
                     plain_ms=time_ms(lambda: gn.group_norm_plain(
-                        x, wt, bs, 32, 1e-6, swish), 10),
-                    library_ms=time_ms(lib, 10), bound_ms=bound_ms(x, y))
+                        x, wt, bs, 32, 1e-6, swish), COMPARE_ITERS, 1),
+                    library_ms=time_ms(lib, COMPARE_ITERS, 1),
+                    bound_ms=gn_bound_ms(gn, x, swish))
         emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish else ""),
              shape=[n, c, h, w], count_per_forward=count,
              max_abs_err=float(diff.max()),
@@ -3780,8 +4038,9 @@ def partial(phases, ref_cfg, prod_cfg):
     ``wavelet_in_unet`` slice), ``restore`` (the production restore through
     ``fused_groupnorm``: a first run, then five timed runs), ``sweep``
     (the GroupNorm kernel under each launch plan, :func:`gn_sweep`), the
-    training phases ``train_data``, ``train_hfrm`` and ``pipeline``,
-    ``tools`` (after ``pipeline``, whose checkpoints it reads),
+    training phases ``train``, ``train_data``, ``train_hfrm`` and
+    ``pipeline``, ``tools`` (after ``pipeline``, whose checkpoints it
+    reads; the training MFU only after ``train``, whose ms/step it takes),
     ``serve``, ``variants``, ``switches`` and ``multigpu``
     (``profiling`` runs alone: see :func:`main`)."""
     if "sweep" in phases:
@@ -3793,6 +4052,7 @@ def partial(phases, ref_cfg, prod_cfg):
             emit("kernels", kernel=name, per="call (wavelet) or UNet "
                  "forward at N = 90 (GroupNorm)", **row)
     scratch = dict.fromkeys(read_counts(), 0)
+    step_ms = train_phase(scratch) if "train" in phases else None
     if "train_data" in phases:
         train_data_phase(scratch)
     if "train_hfrm" in phases:
@@ -3801,7 +4061,7 @@ def partial(phases, ref_cfg, prod_cfg):
         unet_ckpt, hfrm_ckpt, root = pipeline_phase(scratch,
                                                     keep="tools" in phases)
         if "tools" in phases:
-            tools_phase(scratch, unet_ckpt, hfrm_ckpt)
+            tools_phase(scratch, unet_ckpt, hfrm_ckpt, step_ms)
             shutil.rmtree(root, ignore_errors=True)
     if "serve" in phases:
         serve_phase(scratch, {})
@@ -3838,7 +4098,8 @@ def main(argv=None):
                     "script's own")
     ap.add_argument("--gate", help=argparse.SUPPRESS)    # profiling child
     ap.add_argument("--phases", help="comma-separated subset of "
-                    "kernels,restore,sweep,train_data,train_hfrm,pipeline,"
+                    "kernels,restore,sweep,train,train_data,train_hfrm,"
+                    "pipeline,"
                     "tools,serve,variants,switches,multigpu to run alone, "
                     "or profiling by itself; no final lines")
     args = ap.parse_args(argv)
@@ -3890,7 +4151,9 @@ def main(argv=None):
             + (["--tree", args.tree] if args.tree else []),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         CHILDREN.append(profiler)
-    smi = nvidia_smi()
+    from wavedm_tpu_torch.tools.roofline import card_line
+
+    smi = card_line("cuda")             # nvidia-smi's name, power limit
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
@@ -3929,8 +4192,11 @@ def main(argv=None):
     lines = [json.loads(line) for line in out.splitlines()
              if line.startswith('{"phase": "profiling"')]
     assert profiler.returncode == 0 and lines, err[-3000:]
-    emit("profiling", process="child", waited_s=time.perf_counter() - t,
-         **{k: v for k, v in lines[-1].items() if k not in ("phase", "s")})
+    waited_s = time.perf_counter() - t
+    for line in lines:
+        emit("profiling", process="child", child_s=line["s"],
+             **{k: v for k, v in line.items() if k not in ("phase", "s")})
+    emit("profiling", process="child", waited_s=waited_s)
     emit("multigpu", part="start-up and tiny phases beside the build and "
          "small_parity", waited_s=await_multigpu())
     k_per_image = 45
@@ -4060,28 +4326,13 @@ def main(argv=None):
 
     train_parity()
 
-    # stage-2 training at flagship width through the fused kernel
-    ref_train = reference_profile()
-    prod_train = production_profile()
-    for cfg in (ref_train, prod_train):
-        cfg.parallel.fused_resblock = True
-        cfg.validate()
-    hfrm_train = build_hfrm(prod_train, None, "cuda").state_dict()
-    for name, cfg, hfrm in (("reference", ref_train, None),
-                            ("production", prod_train, hfrm_train)):
-        n_crops = cfg.training.batch_size * cfg.training.patch_n
-        counts = train_profile(name, cfg, n_crops, hfrm)
-        for key, val in counts.items():
-            if val:
-                launches[key] += val
-    del hfrm_train
-    torch.cuda.empty_cache()
+    step_ms = train_phase(launches)
 
     # both stages on real pairs, then chained as a user runs them
     train_data_phase(launches)
     train_hfrm_phase()
     unet_ckpt, hfrm_ckpt, root = pipeline_phase(launches, keep=True)
-    tools_phase(launches, unet_ckpt, hfrm_ckpt)
+    tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms)
     for path in (root, os.path.join(ROOT, "wavedm_tpu_torch", "_build",
                                     "smoke_data")):
         shutil.rmtree(path, ignore_errors=True)

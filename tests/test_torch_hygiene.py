@@ -54,6 +54,10 @@ def test_every_module_imports_without_jax_yaml_or_pil():
                      "summarize_sweep", "eval_sweep", "dress_rehearsal",
                      "vpred_rehearsal_ab"):
             assert "wavedm_tpu_torch.tools." + name in names, name
+        # and the measuring tools and the work counter they stand on
+        for name in ("tools.roofline", "tools.trace_summary",
+                     "tools.train_mfu", "utils.work"):
+            assert "wavedm_tpu_torch." + name in names, name
         import torch
         from wavedm_tpu_torch.models.sam import SAM
         from wavedm_tpu_torch.models.vgg_loss import VGG19Features

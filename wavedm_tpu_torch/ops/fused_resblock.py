@@ -10,11 +10,15 @@ compute dtype) under autograd, on either device.  Only the inputs are
 saved.  Launches are counted in ``launches`` per compute dtype; x may be
 float32 or bfloat16 whatever the compute dtype, and the output takes x's
 dtype.  The kernel's weight layout (:func:`weight_layout`) is cached per
-frozen weight tensor (:func:`kernel_weight`).
+frozen weight tensor (:func:`kernel_weight`).  With a work counter active
+(``utils/work.py``) a launch records its :func:`declared_work`, and the
+backward counts as :func:`declared_backward_work` (its recompute's flops
+are not the model's): the plain route's counts, whatever runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import weakref
 
@@ -23,10 +27,12 @@ import torch.nn.functional as F
 
 from wavedm_tpu_torch.ops import _build
 from wavedm_tpu_torch.ops.groupnorm_cuda import group_norm_plain
+from wavedm_tpu_torch.utils import work
 
 __all__ = ["fused_gn_swish_conv", "fused_gn_swish_conv_plain",
            "fused_gn_swish_conv_reference", "weight_layout", "kernel_weight",
-           "split_k", "launches", "GROUPS", "EPS"]
+           "split_k", "declared_work", "declared_backward_work", "launches",
+           "GROUPS", "EPS"]
 
 GROUPS = 32
 EPS = 1e-6
@@ -38,6 +44,56 @@ _ENTRY = {torch.float32: "fused_gn_swish_conv_f32",
 
 # kernel launches since the last reset, by compute dtype
 launches = dict.fromkeys(_ENTRY.values(), 0)
+
+
+def _size(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def declared_work(x_shape, cout: int, x_dtype: torch.dtype,
+                  compute_dtype: torch.dtype) -> tuple:
+    """(flops, xla_flops, bytes) of one launch on x of ``x_shape`` (N, Cin,
+    H, W): what the counter counts for :func:`fused_gn_swish_conv_plain`
+    (the conv's dense 2*N*H*W*9*Cin*Cout; in XLA's convention its taps on
+    real pixels, the bias add, and GroupNorm and swish as
+    ``group_norm_plain`` counts them), and the bytes the kernel must move:
+    x, the float32 GroupNorm scale and shift, the weight in the compute
+    dtype and the float32 bias read, the output (in x's dtype) written."""
+    n, cin, h, w = x_shape
+    out = (n, cout, h, w)
+    flops, conv_xla = work.conv_work(x_shape, (cout, cin, 3, 3), out,
+                                     padding=(1,), bias=True)
+    xla = conv_xla + work.group_norm_xla_flops(n * cin * h * w, n, cin,
+                                               GROUPS, True)
+    nbytes = (n * (cin + cout) * h * w * _size(x_dtype) + 4 * (2 * cin + cout)
+              + 9 * cin * cout * _size(compute_dtype))
+    return flops, xla, nbytes
+
+
+def declared_backward_work(x_shape, cout: int, needs) -> tuple:
+    """(flops, xla_flops) of the backward, as the plain route counts its
+    ops: the conv's backward (torch's formula for the input's and the
+    weight's gradients; in XLA's convention their taps on real pixels and
+    the bias gradient's reduction), swish's and GroupNorm's gradients
+    (``utils/work.py``).  ``needs``: which of x, the GroupNorm scale and
+    shift, the weight and the bias need a gradient."""
+    need_x, need_g, need_b, need_w, need_bias = needs
+    n, cin, h, w = x_shape
+    x4, w4, go = list(x_shape), [cout, cin, 3, 3], [n, cout, h, w]
+    need_y = need_x or need_g or need_b        # the conv input's gradient
+    flops = (need_y * work.conv_flop_count(go, w4, x4, transposed=True)
+             + need_w * work.conv_flop_count([cin, n, h, w], [cout, n, h, w],
+                                             [cin, cout, 3, 3]))
+    valid = work.conv_valid_taps(x4, w4, (1,), (1,), (1,))
+    numel = n * cin * h * w
+    xla = 2 * valid * (int(need_y) + int(need_w))
+    if need_bias:
+        xla += n * cout * h * w - cout
+    if need_y:
+        xla += (work.SILU_BACKWARD_XLA * numel
+                + work.group_norm_backward_xla_flops(numel, need_x,
+                                                     need_g or need_b))
+    return flops, xla
 
 
 def fused_gn_swish_conv_plain(x, weight_gn, bias_gn, w, b, compute_dtype):
@@ -184,6 +240,9 @@ def _launch(x, weight_gn, bias_gn, w, b, compute_dtype):
                   out.data_ptr(), n, cin, h, wd, cout, cout_pad, splits,
                   int(x.dtype == torch.bfloat16), EPS)
     launches[entry] += 1
+    if work.active():
+        work.record("kernel:" + entry, *declared_work(
+            x.shape, cout, x.dtype, compute_dtype))
     return out
 
 
@@ -200,7 +259,12 @@ class _FusedGnSwishConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         need = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
+        x, w = ctx.saved_tensors[0], ctx.saved_tensors[3]
+        unit = (work.declared("fused_gn_swish_conv_backward",
+                              *declared_backward_work(x.shape, w.shape[0],
+                                                      need))
+                if work.active() else contextlib.nullcontext())
+        with unit, torch.enable_grad():
             leaves = [t.detach().requires_grad_(r)
                       for t, r in zip(ctx.saved_tensors, need)]
             out = fused_gn_swish_conv_reference(*leaves, ctx.compute_dtype)

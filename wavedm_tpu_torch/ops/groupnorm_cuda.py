@@ -3,9 +3,11 @@
 A CPU tensor runs :func:`group_norm_plain`; a CUDA tensor launches the
 kernel or raises.  :func:`group_norm_plan` sizes the launch (how a segment
 is held on chip).  Launches are counted in ``launches`` per instantiation
-("f32", "f32_swish", "bf16", "bf16_swish").  The kernel has no gradient, so
-:func:`group_norm` refuses to run under autograd on every device, as the
-JAX package's ``fused_group_norm`` refuses ``jax.grad``.
+("f32", "f32_swish", "bf16", "bf16_swish"); a launch records its
+:func:`declared_work` with a work counter (``utils/work.py``).  The
+kernel has no gradient, so :func:`group_norm` refuses to run under
+autograd on every device, as the JAX package's ``fused_group_norm``
+refuses ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from typing import NamedTuple
 import torch
 
 from wavedm_tpu_torch.ops import _build
+from wavedm_tpu_torch.utils import work
 
 __all__ = ["group_norm", "group_norm_plain", "group_norm_plan",
-           "GroupNormPlan", "launches", "VARIANTS"]
+           "GroupNormPlan", "declared_work", "launches", "VARIANTS"]
 
 VARIANTS = ("f32", "f32_swish", "bf16", "bf16_swish")
 _ENTRY = {torch.float32: ("group_norm_f32", "f32"),
@@ -97,6 +100,19 @@ def group_norm_plan(n: int, c: int, hw: int, groups: int,
                          m * sl * elem, _ceil(segs, m) * k)
 
 
+def declared_work(n: int, c: int, hw: int, groups: int, swish: bool,
+                  dtype: torch.dtype) -> tuple:
+    """(flops, xla_flops, bytes) of one launch on x of shape (n, c, hw) in
+    ``dtype``: what the counter counts for :func:`group_norm_plain` (no
+    dense flops; its elementwise work in XLA's convention), and the bytes
+    the kernel moves: x read, y written, the float32 scale and shift
+    read."""
+    numel = n * c * hw
+    nbytes = 2 * numel * torch.empty((), dtype=dtype).element_size()
+    return (0, work.group_norm_xla_flops(numel, n, c, groups, swish),
+            nbytes + 2 * 4 * c)
+
+
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, num_groups: int = 32,
                      eps: float = 1e-6, swish: bool = False) -> torch.Tensor:
@@ -160,5 +176,9 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   bias.data_ptr(), y.data_ptr(), n, c, hw, num_groups, eps,
                   int(swish), plan.cluster, plan.segs_per_cta, plan.slice,
                   plan.threads)
-    launches[tag + ("_swish" if swish else "")] += 1
+    name = tag + ("_swish" if swish else "")
+    launches[name] += 1
+    if work.active():
+        work.record("kernel:group_norm_" + name,
+                    *declared_work(n, c, hw, num_groups, swish, x.dtype))
     return y

@@ -28,7 +28,8 @@ same linear map.
 ``launches`` counts the kernel launches since the last reset:
 ``wavelet_dec`` / ``wavelet_rec`` in forward passes, ``wavelet_dec_backward``
 the IWT kernel run as a DWT's backward, ``wavelet_rec_backward`` the DWT
-kernel run as an IWT's backward.
+kernel run as an IWT's backward.  Each launch also records its
+:func:`declared_work` with a work counter (``utils/work.py``).
 """
 
 from __future__ import annotations
@@ -40,13 +41,22 @@ import torch
 from wavedm_tpu_torch.ops import _build
 from wavedm_tpu_torch.ops.wavelet_plain import (wavelet_dec_plain,
                                                 wavelet_rec_plain)
+from wavedm_tpu_torch.utils import work
 
 __all__ = ["wavelet_dec_cuda", "wavelet_rec_cuda", "wavelet_dec_cat",
            "wavelet_dec_plain", "wavelet_rec_plain", "kernel_layout",
-           "WaveletDecCat", "WaveletRec", "launches"]
+           "WaveletDecCat", "WaveletRec", "declared_work", "launches"]
 
 launches = {"wavelet_dec": 0, "wavelet_rec": 0, "wavelet_dec_backward": 0,
             "wavelet_rec_backward": 0}
+
+
+def declared_work(pixels: int) -> tuple:
+    """(flops, xla_flops, bytes) of one DWT or IWT launch over ``pixels``
+    float32 pixels (batch x channels x H x W on the pixel side): the plain
+    version's 16x16 basis matmul, 32 flops a pixel in both conventions,
+    and the pixels and as many coefficients, each read or written once."""
+    return 32 * pixels, 32 * pixels, 8 * pixels
 
 
 def _batch_stride(t: torch.Tensor, pixels: bool) -> Optional[int]:
@@ -124,6 +134,8 @@ def _dec_cat(parts: Sequence[torch.Tensor], counter: str) -> torch.Tensor:
         _build.launch(lib, "wavelet_dec_f32", index, p.data_ptr(), out, b, c,
                       h, w, stride, 16 * (channels if b > 1 else c) * plane)
         launches[counter] += 1
+        if work.active():
+            work.record("kernel:" + counter, *declared_work(b * c * h * w))
         out += 4 * 16 * c * plane
     return z
 
@@ -139,6 +151,8 @@ def _rec(z: torch.Tensor, counter: str) -> torch.Tensor:
     _build.launch(lib, "wavelet_rec_f32", z.get_device(), z.data_ptr(),
                   x.data_ptr(), b, fc // 16, 4 * h, 4 * w, stride, fc * h * w)
     launches[counter] += 1
+    if work.active():
+        work.record("kernel:" + counter, *declared_work(x.numel()))
     return x
 
 
