@@ -9,13 +9,19 @@ Phases, each printing one JSON line with its elapsed seconds:
   build             nvcc builds wavedm_tpu_torch/csrc/*.cu into one library
                     (one process per source); ptxas registers and spills
   native            beside nvcc, the host C++ compiler builds the data
-                    library (wavedm_tpu_torch/native/wavedm_data.cc: JPEG
-                    and PNG decode, the native crop stream) where it finds
-                    jpeglib.h, png.h and zlib.h: the compiler, the headers
-                    found, the build seconds, ``available`` (and, when not,
-                    why); the native-stream checks below run only where it
-                    is available.  Beside it PIL's version, whether it has
-                    the WebP and JPEG codecs, and the decoder
+                    library (wavedm_tpu_torch/native/: wavedm_data.cc, the
+                    native crop stream, over the port's own JPEG and PNG
+                    decoders, jpeg_decode.cc and png_decode.cc, which need
+                    zlib alone); it must be available: the compiler, the
+                    build seconds, the library's DT_NEEDED entries (no
+                    libjpeg, no libpng); every committed JPEG/PNG fixture
+                    decoded by it, from the file and from memory, equal to
+                    decodes.npz, and make_crop_batch equal to the JAX
+                    package's crop_batch.npz; one 720x480 decode of
+                    raindrop_0000.jpg and of a RainDrop PNG timed through
+                    the library, PIL and (the PNG) the numpy decoder.
+                    Beside it PIL's version, whether it has the WebP and
+                    JPEG codecs, and the decoder
                     ``utils/images.decode_image`` picks for each committed
                     fixture (PNG, JPEG, WebP, GIF, TIFF)
   profiling         (in a child process started with the script, whose
@@ -99,19 +105,20 @@ Phases, each printing one JSON line with its elapsed seconds:
   train_data        stage 2 on the RainDrop test pairs (standing in for the
                     289 MB train split, which a copy of the repository made
                     for a GPU machine may leave out), the
-                    production profile with ``fused_resblock``: 6 steps
-                    streamed from the PNG files in the PIL order and 6
-                    through the device crop cache (first batches equal to
-                    the byte), in-train validation once, then 3 on the
-                    native crop stream (its first batch equal to
-                    ``make_crop_batch`` called directly, and the stream
-                    ``train_batches`` picks by default) where the data
-                    library is available; ms/step, data wait, peak
-                    memory, launch counts
+                    production profile with ``fused_resblock``:
+                    DATA_STEPS steps streamed from the PNG files in the PIL
+                    order, as many through the device crop cache (first
+                    batches equal to the byte), in-train validation once,
+                    then as many on the native crop stream (its first
+                    batch equal to ``make_crop_batch`` called directly, and
+                    the stream ``train_batches`` picks by default);
+                    ms/step, data wait, peak memory, launch counts, and the
+                    three paths' data_ms and ms/step side by side
   train_hfrm        one small HFRM train step on the card against the CPU;
                     then HFRMTrainer at full width on the 8 test pairs
-                    (whole 720x480 images, batch 8) for 4 steps in float32,
-                    bfloat16 over float32 parameters, and bfloat16 with
+                    (whole 720x480 images, batch 8) for HFRM_STEPS steps
+                    in float32, bfloat16 over float32 parameters, and
+                    bfloat16 with
                     ``hfrm.remat``: ms/step, peak memory, the parameters
                     outside the residual blocks moved, ``lastest`` written
   pipeline          cli.train_hfrm (2 steps) -> its ``lastest`` as
@@ -216,9 +223,12 @@ DEV = "cuda"               # the card (the switches phase names it so)
 TRAIN_STEPS = 3           # cut from 5 for the 5-minute cap
 REF_STEPS = 5   # the reference profile's restores (its own 25, x0_preds[-5])
 # timed calls of a plain version or a library call beside a GroupNorm or
-# fused kernel (cut from 10-20 for the 5-minute cap: those calls take 2-27
-# times the kernel's, and CUDA events time them back to back)
+# fused kernel, after one untimed call (cut from 10-20 for the 5-minute
+# cap: those calls take 2-27 times the kernel's, and CUDA events time them
+# back to back); a call longer than COMPARE_LONG_MS is timed once, where
+# launch jitter is small beside it and repeats cost the cap most
 COMPARE_ITERS = 3
+COMPARE_LONG_MS = 10.0
 HFRM_PARAMS = 15_941_667   # HFRM at full width: dim 32, 2,2,2,4 / 6 / 2,2,2,2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -244,6 +254,14 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def compare_ms(fn):
+    """Time of one call of a plain version or a library call: one untimed
+    call, one timed; under COMPARE_LONG_MS the mean of COMPARE_ITERS more,
+    timed back to back."""
+    ms = time_ms(fn, 1, 1)
+    return ms if ms >= COMPARE_LONG_MS else time_ms(fn, COMPARE_ITERS, 0)
 
 
 def device_ms(fn, x, iters=20, reps=3):
@@ -553,9 +571,9 @@ def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
                                                      swish))
                 d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
                                                          swish), xs)
-                p_ms = time_ms(lambda: gn.group_norm_plain(
-                    xs, wt, bs, 32, 1e-6, swish), COMPARE_ITERS, 1)
-                l_ms = time_ms(lib, COMPARE_ITERS, 1)
+                p_ms = compare_ms(lambda: gn.group_norm_plain(
+                    xs, wt, bs, 32, 1e-6, swish))
+                l_ms = compare_ms(lib)
                 b_ms = gn_bound_ms(gn, xs, swish)
                 emit(phase, kernel=f"group_norm_{name}",
                      shape=[n_patches, c, h, w], count_per_forward=count,
@@ -654,9 +672,9 @@ def fused_at(gen, sites, n, dtype, tag, tol, row, key="", iters=10,
             x, sg, bg, wk, b, dtype), iters, 1)
         d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
             t, sg, bg, wk, b, dtype), x, iters, 1)
-        p_ms = time_ms(lambda: fr.fused_gn_swish_conv_plain(
-            x, sg, bg, wk, b, dtype), min(iters, COMPARE_ITERS), 1)
-        l_ms = time_ms(lib, min(iters, COMPARE_ITERS), 1)
+        p_ms = compare_ms(lambda: fr.fused_gn_swish_conv_plain(
+            x, sg, bg, wk, b, dtype))
+        l_ms = compare_ms(lib)
         flops, _, nbytes = fr.declared_work(x.shape, cout, x.dtype, dtype)
         b_ms, o_ms = bytes_ms(nbytes), ops_ms(flops, dtype)
         emit(phase, kernel=f"fused_gn_swish_conv_{tag}",
@@ -932,6 +950,84 @@ def image_decoders():
     return pil, decoders
 
 
+NATIVE_DECODE_REPEATS = 10
+
+
+def native_phase(status):
+    """The data library on this machine: built from the port's sources
+    (available, or the run fails), needing no libjpeg or libpng; every
+    committed JPEG/PNG fixture decoded by it (from the file, float32, and
+    from memory, uint8) equal to ``decodes.npz``; ``make_crop_batch`` of
+    two RainDrop test pairs equal to the JAX package's ``crop_batch.npz``;
+    and the median of NATIVE_DECODE_REPEATS decodes from memory of a
+    720x480 JPEG and PNG through the library, PIL and ``decode_png``."""
+    import io
+
+    import numpy as np
+
+    from wavedm_tpu_torch.data import native_loader
+    from wavedm_tpu_torch.utils.images import decode_png
+
+    assert status["available"], status["reason"]
+    assert not [n for n in status["needed"]
+                if n.startswith(("libjpeg", "libpng"))], status["needed"]
+    inv = np.float32(1.0 / 255.0)
+    expect = np.load(os.path.join(GOLDEN, "decodes.npz"))
+    fixtures = sorted(f for f in os.listdir(GOLDEN)
+                      if f.endswith((".jpg", ".png")))
+    for name in fixtures:
+        path = os.path.join(GOLDEN, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        assert np.array_equal(native_loader.decode_image(path),
+                              expect[name] * inv), name
+        assert np.array_equal(native_loader.decode_bytes(data, name),
+                              expect[name]), name
+    fx = np.load(os.path.join(GOLDEN, "crop_batch.npz"))
+    batch = native_loader.make_crop_batch(
+        [os.path.join(ROOT, p) for p in fx["inputs"]],
+        [os.path.join(ROOT, p) for p in fx["gts"]], int(fx["patch_n"]),
+        int(fx["patch"]), int(fx["seed"]), n_threads=2)
+    assert np.array_equal(batch, fx["batch"] * inv)
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    decoders = {"library": lambda d: native_loader.decode_bytes(d)}
+    if Image is not None:
+        decoders["PIL"] = lambda d: np.asarray(
+            Image.open(io.BytesIO(d)).convert("RGB"))
+    png = os.path.join(ROOT, "data", "raindrop", "raindrop_test", "input",
+                       "0000.png")
+    decode_ms = {}
+    for path in (os.path.join(GOLDEN, "raindrop_0000.jpg"), png):
+        with open(path, "rb") as f:
+            data = f.read()
+        use = dict(decoders)
+        if path.endswith(".png"):
+            use["numpy"] = decode_png
+        ref, times, same = None, {}, {}
+        for name, fn in use.items():
+            out = fn(data)              # the first call untimed
+            assert out.shape == (480, 720, 3), (name, out.shape)
+            if ref is None:
+                ref = out
+            else:                       # recorded, not required
+                same[name] = bool(np.array_equal(out, ref))
+            ms = []
+            for _ in range(NATIVE_DECODE_REPEATS):
+                t = time.perf_counter()
+                fn(data)
+                ms.append((time.perf_counter() - t) * 1e3)
+            times[name] = float(np.median(ms))
+        decode_ms[os.path.relpath(path, ROOT)] = dict(
+            times, equal_to_library=same)
+    return dict(status, fixtures_equal_decodes_npz=len(fixtures),
+                crop_batch_equal_jax=True, decode_ms_median=decode_ms,
+                decode_repeats=NATIVE_DECODE_REPEATS)
+
+
 def reset_counts():
     from wavedm_tpu_torch.ops import reset_launch_counts
 
@@ -1064,7 +1160,7 @@ def check_whole_image_kernels(cfg):
 
             d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
                                                      swish), x)
-            l_ms = time_ms(lib, COMPARE_ITERS, 1)
+            l_ms = compare_ms(lib)
             b_ms = gn_bound_ms(gn, x, swish)
             emit("kernels", kernel=f"group_norm_{tag}", sites="whole_image",
                  shape=[n, c, h, w], swish=swish, count_per_forward=count,
@@ -1103,7 +1199,7 @@ def check_whole_image_kernels(cfg):
 
             d_ms = device_ms(lambda t: fr.fused_gn_swish_conv(
                 t, sg, bg, wk, b, dtype), x, iters, 1)
-            l_ms = time_ms(lib, min(iters, COMPARE_ITERS), 1)
+            l_ms = compare_ms(lib)
             flops, _, nbytes = fr.declared_work(x.shape, cout, x.dtype,
                                                 dtype)
             by_ms, o_ms = bytes_ms(nbytes), ops_ms(flops, dtype)
@@ -2079,19 +2175,17 @@ def timed_batches(it, waits):
 
 
 DATA_STEPS = 4          # cut from 6 for the 5-minute cap
-NATIVE_STEPS = 3
 
 
 def train_data_phase(launches):
     """Stage 2 on real RainDrop pairs in the production profile (bfloat16
     compute, float32 parameters, ``fused_resblock``, a frozen random
-    HFRM, 2 x 8 crops of 256x256): 6 steps streamed from the PNG files in
-    the PIL order (``use_native=False``), then 6 from a fresh trainer
-    through the device cache, the first batch of each path equal to the
-    byte; then, where the data library is available, 3 on the native crop
-    stream, whose first batch must equal ``make_crop_batch`` called
-    directly and be what ``train_batches`` gives by default (where it is
-    not, the default must be the PIL-order stream).
+    HFRM, 2 x 8 crops of 256x256): DATA_STEPS steps streamed from the PNG
+    files in the PIL order (``use_native=False``), then as many from a
+    fresh trainer through the device cache, the first batch of each path
+    equal to the byte; then as many on the native crop stream, whose first
+    batch must equal ``make_crop_batch`` called directly and be what
+    ``train_batches`` gives by default.
     ``training.validation_freq`` is 3 and the streamed run validates once,
     at step 3 (two test pairs restored with the training UNet).  Times the
     steps after the first: wall per step (validation taken out), the
@@ -2122,14 +2216,15 @@ def train_data_phase(launches):
         1, cfg.sampling.t_start // cfg.sampling.sampling_timesteps)))
     m = cfg.model      # two fused sites a ResnetBlock: 44 at full width
     sites = 2 * (len(m.ch_mult) * (2 * m.num_res_blocks + 1) + 2)
-    native_ok = native_loader.available()
-    paths = ["streamed", "device_cache"] + (["native"] if native_ok else [])
+    assert native_loader.available(), native_loader.unavailable_reason()
+    paths = ["streamed", "device_cache", "native"]
+    side_by_side = {}
     firsts = {}
     try:
         for path in paths:
             cfg.data.device_cache = path == "device_cache"
             use_native = path == "native"
-            steps = NATIVE_STEPS if use_native else DATA_STEPS
+            steps = DATA_STEPS
             dataset = RainDrop(cfg, device="cuda")
             t = time.perf_counter()
             first = next(dataset.train_batches(0, prefetch=False,
@@ -2193,6 +2288,9 @@ def train_data_phase(launches):
                 assert len(dumps) == 6, dumps
                 fields = dict(validation=val_out[0], validation_s=val_s[0],
                               validation_dumps=len(dumps))
+            data_ms = sum(waits[1:steps]) * 1e3 / (steps - 1)
+            side_by_side[path] = {"data_ms": data_ms, "ms_per_step": wall_ms,
+                                  "step_ms": sum(step_ms[1:]) / (steps - 1)}
             emit("train_data", path=path, profile="production",
                  dtype="bfloat16", fused_resblock=True, crops=n_crops,
                  steps=steps,
@@ -2200,7 +2298,7 @@ def train_data_phase(launches):
                  first_step_ms=step_ms[0],
                  ms_per_step=wall_ms,
                  step_ms=sum(step_ms[1:]) / (steps - 1),
-                 data_ms=sum(waits[1:steps]) * 1e3 / (steps - 1),
+                 data_ms=data_ms,
                  peak_bytes=peak, loss=loss, launches=got,
                  group_norm_launches=sum(v for k, v in got.items()
                                          if k.startswith("group_norm")),
@@ -2214,27 +2312,23 @@ def train_data_phase(launches):
     # first batch against the library called directly on the same pairs
     cfg.data.device_cache = False
     default = next(RainDrop(cfg).train_batches(0, prefetch=False))
-    native = {"available": native_ok,
-              "reason": native_loader.unavailable_reason()}
-    if native_ok:
-        ds = RainDropDataset(RainDrop(cfg).train_dir(), cfg.data.patch_size,
-                             cfg.training.patch_n)
-        order = np.array(ds.indices)
-        np.random.default_rng(cfg.training.seed).shuffle(order)
-        bs = cfg.training.batch_size
-        direct = native_loader.make_crop_batch(
-            [ds.inputs[i] for i in order[:bs]],
-            [ds.gts[i] for i in order[:bs]], cfg.training.patch_n,
-            cfg.data.patch_size, cfg.training.seed * 100003 * 1000003,
-            cfg.data.num_workers)
-        assert np.array_equal(firsts["native"], direct)
-        assert np.array_equal(default, direct)
-        native["first_batch_equals_make_crop_batch"] = True
-    else:
-        assert np.array_equal(default, firsts["streamed"])
-    native["default_stream"] = "native" if native_ok else "streamed"
+    ds = RainDropDataset(RainDrop(cfg).train_dir(), cfg.data.patch_size,
+                         cfg.training.patch_n)
+    order = np.array(ds.indices)
+    np.random.default_rng(cfg.training.seed).shuffle(order)
+    bs = cfg.training.batch_size
+    direct = native_loader.make_crop_batch(
+        [ds.inputs[i] for i in order[:bs]],
+        [ds.gts[i] for i in order[:bs]], cfg.training.patch_n,
+        cfg.data.patch_size, cfg.training.seed * 100003 * 1000003,
+        cfg.data.num_workers)
+    assert np.array_equal(firsts["native"], direct)
+    assert np.array_equal(default, direct)
+    native = {"available": True, "first_batch_equals_make_crop_batch": True,
+              "default_stream": "native"}
     emit("train_data", first_batches_equal=True,
-         batch_shape=list(firsts["streamed"].shape), native_stream=native)
+         batch_shape=list(firsts["streamed"].shape), native_stream=native,
+         side_by_side=side_by_side)
 
 
 HFRM_STEPS = 3         # cut from 6 (PR 15: 4) for the 5-minute cap
@@ -2477,7 +2571,8 @@ def pipeline_phase(launches, keep=False):
     return unet_ckpt, hfrm_ckpt, root
 
 
-SEED_STUDY_SEEDS = 4    # the seed study's batch-1 seeds (cut from 8)
+SEED_STUDY_SEEDS = 2    # the seed study's batch-1 seeds (cut from 8, 4)
+VPRED_AB_STEPS = 5      # the toy A/B's steps (cut from 20)
 
 
 def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
@@ -2487,8 +2582,9 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
     synthetic dataset at 2 + 2 pairs; ``diag_quality`` on one test image
     (2 steps); ``diag_teacher_forced`` on 4 crops; ``seed_study`` at
     ``SEED_STUDY_SEEDS`` seeds and one batch of 8, both chains at 2 steps;
-    the toy A/B for 20
-    steps; ``eval_sweep`` over two rows (2 steps, 1 image, float32 under
+    the toy A/B for ``VPRED_AB_STEPS``
+    steps; ``eval_sweep`` over its ``full_chain_ema`` row (the EMA
+    weights, 2 steps, 1 image, float32 under
     ``rehearsal_flagship``, whose UNet and HFRM are the production ones),
     read back by ``summarize_sweep``; the dress rehearsal at 2 + 2 steps
     and the rehearsal A/B's three arms at 1 step, evaluated on 1 image
@@ -2554,15 +2650,16 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
           "wavelet_dec": 2 * 2 * (SEED_STUDY_SEEDS + 1),
           "wavelet_rec": 2 * (SEED_STUDY_SEEDS + 1)}),
         ("vpred_cpu_ab", vpred_cpu_ab.main, [
-            "--steps", "20", "--out", os.path.join(work, "vpred_ab.json")]
+            "--steps", str(VPRED_AB_STEPS), "--out",
+            os.path.join(work, "vpred_ab.json")]
             + gpu, {}),
         ("eval_sweep", eval_sweep.main, [
             "--ckpt", unet_ckpt,
             "--hfrm-ckpt", hfrm_ckpt, "--out", os.path.join(work, "sweep"),
-            "--rows", "full_chain,full_chain_ema", "--diag-n", "0",
+            "--rows", "full_chain_ema", "--diag-n", "0",
             "--eval-batch", "2"] + gpu + ["--"] + fused_gn + data
             + two_steps + ["--n-images", "1"],
-         {**gn("f32", 2 * 2), "wavelet_dec": 2 * 2, "wavelet_rec": 2}),
+         {**gn("f32", 2), "wavelet_dec": 2, "wavelet_rec": 1}),
         ("summarize_sweep", summarize_sweep.main, [
             "--dir", os.path.join(work, "sweep"), "--out",
             os.path.join(work, "sweep_summary.json")], {}),
@@ -2605,7 +2702,7 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
                                  numbers=len(numbers))
             torch.cuda.empty_cache()
         summary = json.load(open(os.path.join(work, "sweep_summary.json")))
-        assert sorted(summary) == ["full_chain", "full_chain_ema"], summary
+        assert sorted(summary) == ["full_chain_ema"], summary
         assert all(r["n_images"] == 1 for r in summary.values()), summary
         seeds = json.load(open(os.path.join(work, "seed_study.json")))
         assert (seeds["full_25step"]["b1"]["n"],
@@ -2849,9 +2946,9 @@ def gn_row(gen, sites, n, dtype, tag, swish, phase, timed=True):
                                                      swish), 10),
                     device_ms=device_ms(lambda t: gn.group_norm(
                         t, wt, bs, 32, 1e-6, swish), x, 10),
-                    plain_ms=time_ms(lambda: gn.group_norm_plain(
-                        x, wt, bs, 32, 1e-6, swish), COMPARE_ITERS, 1),
-                    library_ms=time_ms(lib, COMPARE_ITERS, 1),
+                    plain_ms=compare_ms(lambda: gn.group_norm_plain(
+                        x, wt, bs, 32, 1e-6, swish)),
+                    library_ms=compare_ms(lib),
                     bound_ms=gn_bound_ms(gn, x, swish))
         emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish else ""),
              shape=[n, c, h, w], count_per_forward=count,
@@ -4175,7 +4272,8 @@ def main(argv=None):
          nvcc_seconds=_build.last_build_seconds, library=_build.LIB_PATH,
          ptxas=ptxas_report(_build.last_ptxas))
     pil, decoders = image_decoders()
-    emit("native", **native.result(), pil=pil, decoders=decoders)
+    emit("native", **native_phase(native.result()), pil=pil,
+         decoders=decoders)
 
     ref_cfg = reference_profile()
     ref_cfg.sampling.sampling_timesteps = REF_STEPS

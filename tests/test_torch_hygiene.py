@@ -1,12 +1,14 @@
 """PyTorch port hygiene: what the GPU machine's installation allows.
 
 The port needs only torch, numpy and the CUDA toolkit there: it runs with
-jax, flax, yaml and PIL blocked, and never leans on the JAX package.  The entry points
+jax, flax, yaml and PIL blocked, and never leans on the JAX package; its
+data library needs zlib and no libjpeg or libpng.  The entry points
 run on the card unless the caller names the CPU, and a kernel wrapper
 handed a non-CPU tensor launches its kernel or raises -- never falls back.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -16,6 +18,7 @@ import torch
 
 from wavedm_tpu_torch.config import Config
 from wavedm_tpu_torch.inference import loader
+from wavedm_tpu_torch.native import build as native_build
 from wavedm_tpu_torch.ops import (_build, fused_resblock, groupnorm_cuda,
                                   wavelet_cuda)
 
@@ -102,7 +105,7 @@ def test_every_module_imports_without_jax_yaml_or_pil():
         tmp = tempfile.mkdtemp()
         img = np.arange(32 * 32 * 3, dtype=np.uint8).reshape(32, 32, 3)
         # a JPEG through the data library, built here from the port's
-        # source (this host has libjpeg's and libpng's headers)
+        # sources, which need zlib alone
         from wavedm_tpu_torch.data import native_loader
         from wavedm_tpu_torch.utils.images import read_image
         assert native_loader.available(), native_loader.unavailable_reason()
@@ -267,3 +270,47 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, call):
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         call()
     assert counts == before
+
+
+def test_data_library_sources_include_no_libjpeg_or_libpng():
+    """The port's decoders stand in for libjpeg and libpng on every
+    machine: no source of the data library includes their headers."""
+    native = os.path.join(REPO, "wavedm_tpu_torch", "native")
+    sources = [f for f in os.listdir(native) if f.endswith((".cc", ".h"))]
+    assert {"wavedm_data.cc", "jpeg_decode.cc", "png_decode.cc"} <= set(
+        sources)
+    for name in sources:
+        with open(os.path.join(native, name)) as f:
+            includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)",
+                                  f.read(), re.M)
+        assert not {"jpeglib.h", "jerror.h", "png.h"} & set(includes), name
+    assert native_build.LIBS == ("-lz", "-lpthread")
+    assert native_build.HEADERS == ("zlib.h",)
+
+
+def test_data_library_needs_no_libjpeg_or_libpng():
+    """The built library's DT_NEEDED (read from its ELF dynamic section)
+    names zlib and no libjpeg or libpng; the JAX package's names both."""
+    assert native_build.status()["available"]
+    needed = native_build.needed()
+    assert any(n.startswith("libz.") for n in needed), needed
+    assert not [n for n in needed if re.match(r"lib(jpeg|png)", n)], needed
+    jax_lib = os.path.join(REPO, "wavedm_tpu", "data", "libwavedm_data.so")
+    jax_needed = native_build.needed(jax_lib)
+    assert any(n.startswith("libjpeg") for n in jax_needed), jax_needed
+    assert any(n.startswith("libpng") for n in jax_needed), jax_needed
+
+
+def test_data_library_is_unavailable_only_without_zlib(monkeypatch):
+    """Neither jpeglib.h nor png.h is asked for; without zlib.h the
+    reason names it."""
+    monkeypatch.setattr(native_build, "_lib", None)
+    monkeypatch.setattr(native_build, "_is_current", lambda digest: False)
+    found = {"compiler": "/usr/bin/c++",
+             "headers": {"jpeglib.h": False, "png.h": False, "zlib.h": True}}
+    monkeypatch.setattr(native_build, "probe", lambda: found)
+    assert native_build.unavailable_reason() is None
+    found["headers"]["zlib.h"] = False
+    reason = native_build.unavailable_reason()
+    assert "zlib.h" in reason and "jpeglib" not in reason \
+        and "png.h" not in reason

@@ -2,12 +2,13 @@
 ``native/build.py``, bound by ``data/native_loader.py``) against the JAX
 package's own library (``wavedm_tpu/data/libwavedm_data.so``) and PIL.
 
-Both libraries run the same libjpeg/libpng code on this host, so every
-comparison is exact: float32 bytes, or uint8.  Decodes equal JAX's and
+The port's library decodes with its own JPEG and PNG decoders, written to
+give what libjpeg-turbo and libpng give in the JAX package's library, so
+every comparison is exact: float32 bytes, or uint8.  Decodes equal JAX's and
 PIL's ``convert("RGB")`` (16-bit grey aside: libpng keeps the high byte
 where PIL clips); crop batches equal JAX's over seeds, thread counts and
 pairs of several sizes; ``RainDrop.train_batches(use_native=True)`` and
-the default stream equal JAX's.  The build is keyed on the source's hash,
+the default stream equal JAX's.  The build is keyed on the sources' hash,
 refuses nothing quietly, and never loads the JAX package's library.
 PIL and the JAX package are imported by the tests only.
 """
@@ -190,11 +191,16 @@ def test_a_missing_pair_raises(pairs, tmp_path):
 
 @pytest.fixture
 def own_build(monkeypatch, tmp_path):
-    """The build module pointed at a copy of the source and a build
-    directory under ``tmp_path``, with nothing loaded yet."""
+    """The build module pointed at a copy of the sources and a build
+    directory under ``tmp_path``, with nothing loaded yet; returns the
+    copy of ``wavedm_data.cc``."""
+    for path in build.SOURCES + build.HEADERS_LOCAL:
+        shutil.copy(path, tmp_path)
+    monkeypatch.setattr(build, "SOURCES", tuple(
+        str(tmp_path / os.path.basename(p)) for p in build.SOURCES))
+    monkeypatch.setattr(build, "HEADERS_LOCAL", tuple(
+        str(tmp_path / os.path.basename(p)) for p in build.HEADERS_LOCAL))
     src = tmp_path / "wavedm_data.cc"
-    shutil.copy(build.SOURCE, src)
-    monkeypatch.setattr(build, "SOURCE", str(src))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(build, "LIB_PATH",
                         str(tmp_path / "_build" / "lib.so"))
@@ -228,14 +234,14 @@ def test_a_compile_error_raises_with_the_toolchain_present(own_build):
     assert not os.path.exists(build.LIB_PATH)
 
 
-@pytest.mark.parametrize("missing", ["compiler", "png.h"])
+@pytest.mark.parametrize("missing", ["compiler", "zlib.h"])
 def test_unavailable_names_what_is_missing(own_build, monkeypatch, missing):
     probe = {"compiler": None if missing == "compiler" else "/usr/bin/c++",
              "headers": {h: h != missing for h in build.HEADERS}}
     monkeypatch.setattr(build, "probe", lambda: probe)
     assert native_loader.available() is False
     reason = native_loader.unavailable_reason()
-    assert ("no C++ compiler" if missing == "compiler" else "png.h") \
+    assert ("no C++ compiler" if missing == "compiler" else "zlib.h") \
         in reason
     assert build.status()["available"] is False
     with pytest.raises(RuntimeError, match=re.escape(reason)):
@@ -253,8 +259,8 @@ def test_the_library_is_the_ports_own():
     """The port builds and maps its own library, never the JAX package's
     ``libwavedm_data.so``, with the JAX package blocked."""
     assert os.path.basename(build.LIB_PATH) == "libwavedm_tpu_torch_data.so"
-    assert os.path.dirname(build.SOURCE) == os.path.join(
-        REPO, "wavedm_tpu_torch", "native")
+    assert {os.path.dirname(p) for p in build.SOURCES} == {os.path.join(
+        REPO, "wavedm_tpu_torch", "native")}
     script = textwrap.dedent(f"""
         import sys
         for name in ("jax", "wavedm_tpu", "PIL"):

@@ -407,6 +407,40 @@ def test_http_restores_jpeg_palette_and_bmp_bodies(tiny_server, fmt):
     assert out.dtype == np.uint8 and out.shape == (32, 48, 3)
 
 
+def _bomb_jpeg(h=20000, w=20000):
+    """A 16x16 JPEG whose SOF0 claims h x w: a body of a few hundred bytes
+    whose header asks for far more pixels than PIL's decompression-bomb
+    limit."""
+    buf = io.BytesIO()
+    Image.fromarray(_image("RGB", 16, 16)).save(buf, "JPEG")
+    data = bytearray(buf.getvalue())
+    sof = data.index(b"\xff\xc0")
+    data[sof + 5:sof + 9] = h.to_bytes(2, "big") + w.to_bytes(2, "big")
+    return bytes(data)
+
+
+def test_http_refuses_a_decompression_bomb_header(tiny_server):
+    """A JPEG body whose header claims 20000x20000 pixels is refused by
+    its header, as JAX's PIL refuses it, and answered 500; the server goes
+    on serving."""
+    srv, port = tiny_server
+    body = _bomb_jpeg()
+    assert len(body) < 1000
+    with pytest.raises(Image.DecompressionBombError):
+        jax_server.RestorationServer(None)._decode(body)
+    with pytest.raises(ValueError, match="decompression-bomb limit"):
+        srv._decode(body)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/restore",
+                                 data=body, method="POST")
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(req, timeout=60)
+    assert err.value.code == 500
+    assert b"decompression-bomb limit" in err.value.read()
+    results = []
+    _post(port, _encoded("JPEG"), results)
+    assert results[0][0] == 200
+
+
 @pytest.mark.parametrize("fmt", list(PIL_FORMATS))
 def test_http_restores_pil_format_bodies(tiny_server, fmt):
     """WebP (lossy, lossless, RGBA), GIF and TIFF bodies over HTTP are

@@ -20,7 +20,12 @@ import numpy as np
 from wavedm_tpu_torch.native import build
 
 __all__ = ["available", "unavailable_reason", "decode_image", "decode_bytes",
-           "make_crop_batch"]
+           "make_crop_batch", "MAX_PIXELS"]
+
+# the most pixels a header may claim before decode_bytes allocates for it:
+# PIL's decompression-bomb limit (an error above twice
+# ``Image.MAX_IMAGE_PIXELS``), which JAX's server meets on the same body
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
 
 def available() -> bool:
@@ -69,13 +74,20 @@ def decode_image(path: str, max_h: int = 4096,
 
 def decode_bytes(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """An encoded JPEG or PNG held in memory -> (H, W, 3) uint8 RGB;
-    raises ``ValueError`` naming ``name`` when it does not decode."""
+    raises ``ValueError`` naming ``name`` when it does not decode, or when
+    its header claims more than :data:`MAX_PIXELS` pixels (refused before
+    anything is allocated for them)."""
     lib = build.library()
     h, w = _int_out()
     if lib.wdm_image_size_mem(data, len(data), ctypes.byref(h),
                               ctypes.byref(w)) != 0:
         raise ValueError(f"{name}: not a JPEG or PNG the data library "
                          "decodes (header)")
+    if h.value * w.value > MAX_PIXELS:
+        raise ValueError(f"{name}: its header claims {w.value}x{h.value} = "
+                         f"{h.value * w.value} pixels, above the "
+                         f"{MAX_PIXELS} a body may have (PIL's "
+                         "decompression-bomb limit)")
     out = np.empty((h.value, w.value, 3), np.uint8)
     rc = lib.wdm_decode_mem(data, len(data), out.ctypes.data, h.value,
                             w.value, ctypes.byref(h), ctypes.byref(w))

@@ -14,7 +14,9 @@ rest through PIL, as JAX's PIL reads them.
   1. ``data.device_cache`` (and not ``data.global_attn``): the decoded
      split on the device, cropped there (``data/device_cache.py``);
   2. the native crop stream, by default wherever the port's data library
-     is built or builds (``data/native_loader.py``), ``data.global_attn``
+     is built or builds (``data/native_loader.py``; it needs a C++
+     compiler and zlib, so it builds on the card's machine too),
+     ``data.global_attn``
      is off and every file of this process's stripe is a PNG or a JPEG,
      the two formats the library decodes (JAX picks its native stream
      without that check, and it then fails on a WebP pair): each batch of

@@ -23,9 +23,9 @@ Differences from JAX, by design:
   requests than that has connections dropped and retried about a second
   later, which splits a burst that should fill one batch.
 - Requests are decoded by ``utils/images.decode_image``: PNG of every
-  encoding and BMP in numpy, JPEG through the port's data library
-  (libjpeg) where it is available and through PIL where it is not (a
-  machine without libjpeg's headers cannot build the library), and WebP,
+  encoding and BMP in numpy, JPEG through the port's data library (its
+  own decoder, equal to libjpeg's; it builds wherever a C++ compiler and
+  zlib are, and PIL decodes JPEG only where it cannot), and WebP,
   GIF (its first frame), TIFF and every other format through PIL, as
   JAX's server opens every body.  So the server takes what JAX's takes;
   a body PIL cannot identify, or a format whose codec this machine's PIL

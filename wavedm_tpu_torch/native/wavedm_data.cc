@@ -4,9 +4,11 @@
 //
 // The port's own copy of the JAX package's native/dataloader/wavedm_data.cc.
 // wdm_decode_image and wdm_make_crop_batch keep that library's ABI and
-// results to the byte: the same libjpeg/libpng transforms, `* (1.0f/255)`,
-// the worker pool over an atomic index and the per-slot
-// mt19937_64(Mix(seed, slot)) crop coordinates, y before x.  Two changes:
+// results to the byte: the same decodes as its libjpeg/libpng calls, from
+// the port's own decoders (jpeg_decode.cc, png_decode.cc over zlib), so
+// the library needs zlib alone; `* (1.0f/255)`, the worker pool over an
+// atomic index and the per-slot mt19937_64(Mix(seed, slot)) crop
+// coordinates, y before x.  Two changes:
 //   - wdm_make_crop_batch skips a pair smaller than the patch, as it skips
 //     one that fails to decode (the JAX copy reads past the image there);
 //   - wdm_image_size_mem and wdm_decode_mem decode from memory to uint8,
@@ -15,20 +17,16 @@
 //     its image does fails there (as PIL refuses it), where the file
 //     route, like the JAX copy, takes libjpeg's grey fill.
 
-#include <cstddef>  // jpeglib.h needs size_t and FILE declared first
-#include <cstdio>
-
-#include <jpeglib.h>
-#include <jerror.h>  // JWRN_JPEG_EOF
-#include <png.h>
-
 #include <atomic>
-#include <csetjmp>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <random>
 #include <thread>
 #include <vector>
+
+#include "jpeg_decode.h"
+#include "png_decode.h"
 
 #define WDM_STR2(x) #x
 #define WDM_STR(x) WDM_STR2(x)
@@ -45,171 +43,40 @@ namespace {
 struct Image {
   int w = 0, h = 0;
   std::vector<uint8_t> rgb;  // h*w*3
-  bool ok = false;
 };
 
-// Where the encoded bytes come from: an open file, or a buffer.
-struct Source {
-  FILE* file = nullptr;
-  const uint8_t* data = nullptr;
-  size_t size = 0;
-  size_t pos = 0;
-};
-
-// ----------------------------------------------------------------- JPEG
-
-struct JpegErrorMgr {
-  jpeg_error_mgr pub;
-  jmp_buf setjmp_buffer;
-  void (*default_emit)(j_common_ptr, int) = nullptr;
-  bool ended_early = false;  // the data ended before the image did
-};
-
-void JpegErrorExit(j_common_ptr cinfo) {
-  auto* mgr = reinterpret_cast<JpegErrorMgr*>(cinfo->err);
-  longjmp(mgr->setjmp_buffer, 1);
-}
-
-void JpegEmitMessage(j_common_ptr cinfo, int msg_level) {
-  auto* mgr = reinterpret_cast<JpegErrorMgr*>(cinfo->err);
-  if (msg_level < 0 && cinfo->err->msg_code == JWRN_JPEG_EOF)
-    mgr->ended_early = true;
-  mgr->default_emit(cinfo, msg_level);
-}
-
-// header_only: stop after the header, with only w and h set.
-bool DecodeJpeg(Source* src, Image* out, bool header_only) {
-  jpeg_decompress_struct cinfo;
-  JpegErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = JpegErrorExit;
-  jerr.default_emit = jerr.pub.emit_message;
-  jerr.pub.emit_message = JpegEmitMessage;
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_decompress(&cinfo);
-    return false;
-  }
-  jpeg_create_decompress(&cinfo);
-  if (src->file)
-    jpeg_stdio_src(&cinfo, src->file);
-  else
-    jpeg_mem_src(&cinfo, src->data, static_cast<unsigned long>(src->size));
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    return false;
-  }
-  if (header_only) {
-    out->w = cinfo.image_width;
-    out->h = cinfo.image_height;
-    jpeg_destroy_decompress(&cinfo);
-    return true;
-  }
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  out->w = cinfo.output_width;
-  out->h = cinfo.output_height;
-  out->rgb.resize(size_t(out->w) * out->h * 3);
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t* row = out->rgb.data() + size_t(cinfo.output_scanline) * out->w * 3;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  // from memory, a body cut short is refused; a file is taken as JAX's is
-  out->ok = src->file || !jerr.ended_early;
-  return out->ok;
-}
-
-// ------------------------------------------------------------------ PNG
-
-void PngReadMem(png_structp png, png_bytep dst, png_size_t n) {
-  auto* src = static_cast<Source*>(png_get_io_ptr(png));
-  if (src->size - src->pos < n) png_error(png, "read past the end of data");
-  std::memcpy(dst, src->data + src->pos, n);
-  src->pos += n;
-}
-
-bool DecodePng(Source* src, Image* out, bool header_only) {
-  png_structp png =
-      png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  if (!png) return false;
-  png_infop info = png_create_info_struct(png);
-  if (!info) {
-    png_destroy_read_struct(&png, nullptr, nullptr);
-    return false;
-  }
-  std::vector<png_bytep> rows;  // before setjmp: a longjmp skips no destructor
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  if (src->file)
-    png_init_io(png, src->file);
-  else
-    png_set_read_fn(png, src, PngReadMem);
-  png_read_info(png, info);
-  png_uint_32 w, h;
-  int bit_depth, color_type;
-  png_get_IHDR(png, info, &w, &h, &bit_depth, &color_type, nullptr, nullptr,
-               nullptr);
-  if (header_only) {
-    out->w = int(w);
-    out->h = int(h);
-    png_destroy_read_struct(&png, &info, nullptr);
-    return true;
-  }
-  if (bit_depth == 16) png_set_strip_16(png);
-  if (color_type == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-  if (color_type == PNG_COLOR_TYPE_GRAY && bit_depth < 8)
-    png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-  if (color_type == PNG_COLOR_TYPE_GRAY ||
-      color_type == PNG_COLOR_TYPE_GRAY_ALPHA)
-    png_set_gray_to_rgb(png);
-  if (color_type & PNG_COLOR_MASK_ALPHA) png_set_strip_alpha(png);
-  png_read_update_info(png, info);
-
-  out->w = int(w);
-  out->h = int(h);
-  out->rgb.resize(size_t(w) * h * 3);
-  rows.resize(h);
-  for (png_uint_32 y = 0; y < h; ++y)
-    rows[y] = out->rgb.data() + size_t(y) * w * 3;
-  png_read_image(png, rows.data());
-  png_destroy_read_struct(&png, &info, nullptr);
-  out->ok = true;
-  return true;
-}
-
-// Dispatch on the signature: FF D8 is JPEG, the 8-byte signature PNG.
-bool Decode(Source* src, const uint8_t* magic, size_t n, Image* out,
+// Decode an encoded JPEG or PNG, told apart by the signature: FF D8 is
+// JPEG, the 8-byte signature PNG.  from_file: a JPEG that ends early is
+// taken with libjpeg's fill, as the JAX copy's file route takes it.
+bool Decode(const uint8_t* data, size_t size, bool from_file, Image* out,
             bool header_only) {
-  if (n >= 2 && magic[0] == 0xFF && magic[1] == 0xD8)
-    return DecodeJpeg(src, out, header_only);
-  if (n >= 8 && png_sig_cmp(magic, 0, 8) == 0)
-    return DecodePng(src, out, header_only);
+  if (size >= 2 && data[0] == 0xFF && data[1] == 0xD8) {
+    bool ran_out = false;
+    if (!wdm::DecodeJpeg(data, size, header_only, &out->w, &out->h,
+                         &out->rgb, &ran_out))
+      return false;
+    return header_only || from_file || !ran_out;
+  }
+  if (wdm::IsPng(data, size))
+    return wdm::DecodePng(data, size, header_only, &out->w, &out->h,
+                          &out->rgb);
   return false;
 }
 
 bool DecodeFile(const char* path, Image* out) {
   FILE* f = fopen(path, "rb");
   if (!f) return false;
-  uint8_t magic[8] = {0};
-  size_t n = fread(magic, 1, 8, f);
-  rewind(f);
-  Source src;
-  src.file = f;
-  bool ok = Decode(&src, magic, n, out, false);
+  std::vector<uint8_t> data;
+  uint8_t buf[1 << 16];
+  for (size_t n; (n = fread(buf, 1, sizeof(buf), f)) > 0;)
+    data.insert(data.end(), buf, buf + n);
   fclose(f);
-  return ok;
+  return Decode(data.data(), data.size(), true, out, false);
 }
 
 bool DecodeMem(const uint8_t* data, size_t size, Image* out,
                bool header_only) {
-  Source src;
-  src.data = data;
-  src.size = size;
-  return Decode(&src, data, size, out, header_only);
+  return Decode(data, size, false, out, header_only);
 }
 
 // splittable deterministic RNG per (seed, image index)

@@ -19,7 +19,7 @@ each runs JAX's phases at the port's shapes, asserting as it goes:
   at one rank: the gap between those two runs is printed beside the
   checks); over ranks the bfloat16 step runs under DDP alone and the
   caller holds its loss to world 1's; and ``flagship_restore``, two
-  720x480 images restored patch-parallel (90 patches, 2 steps) in float32
+  720x480 images restored patch-parallel (90 patches, 1 step) in float32
   and bfloat16 against rank 0's unsharded restore, then ``restore()``
   scoring each rank's stripe of the two pairs.
 
@@ -68,7 +68,7 @@ TINY = {
 FLAGSHIP_PARAMS = 156_492_675
 SEED = 61
 CROPS = 16                  # the production profile's 2 x 8 crops a step
-RESTORE_STEPS = 2
+RESTORE_STEPS = 1
 
 
 def _leaf_ratio(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],

@@ -12,13 +12,15 @@ the reason.
 - ``decode_image`` (``read_image`` for a file) picks the decoder by the
   signature, by a fixed rule (:func:`image_decoder` says which):
   PNG (every encoding) and BMP by the port's numpy decoders; JPEG
-  (``FF D8``) by libjpeg in the port's data library
-  (``data/native_loader.decode_bytes``) wherever that library is
-  available, and by PIL where it is not; everything else by PIL, as JAX
-  opens it: WebP (lossy, lossless, with alpha), GIF (its first frame),
-  TIFF and the rest.  A file that PIL cannot identify, a machine without
-  PIL, and a PIL built without the format's codec each raise naming why;
-  an error of the data library on a JPEG is raised, not retried by PIL.
+  (``FF D8``) by the port's data library
+  (``data/native_loader.decode_bytes``: its own decoder, equal to
+  libjpeg-turbo's output, built wherever a C++ compiler and zlib are, the
+  card's machine included), and by PIL only where that library is
+  unavailable; everything else by PIL, as JAX opens it: WebP (lossy,
+  lossless, with alpha), GIF (its first frame), TIFF and the rest.  A
+  file that PIL cannot identify, a machine without PIL, and a PIL built
+  without the format's codec each raise naming why; an error of the data
+  library on a JPEG is raised, not retried by PIL.
 - ``decode_png`` (``read_png`` for a file) takes every PNG: colour types
   0 (grey at 1, 2, 4, 8 or 16 bits), 2 (RGB), 3 (palette at 1, 2, 4 or 8
   bits; an index past the PLTE reads black), 4 (grey + alpha) and 6
@@ -26,7 +28,8 @@ the reason.
   dropped, grey is replicated, grey below 8 bits is scaled to 0..255
   (1 bit: x255, 2: x85, 4: x17), 16-bit RGB, RGBA and grey + alpha keep
   the high byte, and 16-bit grey is clipped at 255, as PIL's "I;16" mode
-  converts (libpng, and so the data library, keeps the high byte there).
+  converts (libpng, and so the data library's PNG decoder, keeps the
+  high byte there).
   All five row filters are undone; Sub and Up vectorise per row, Average
   and Paeth run a Python loop (the RainDrop test split uses only Sub and
   Up).  ``encode_png`` (``write_png`` for a file) writes an RGB image as
