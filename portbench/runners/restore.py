@@ -1,0 +1,125 @@
+"""Closed-loop restoration: one caller, one ``restore_image_device`` call
+of ``batch`` images at a time, each synchronised before the next.
+
+Set-up makes, from the seed, on the device: the UNet's and the HFRM's
+weights (``lib/weights.py``), a pool of ``pool`` call inputs (the
+workload's images in seeded orders, ``batch`` a call) and their x_T noise;
+it builds the program's restorer on them and warms it up with one call.
+Call k of the window restores pool entry k mod ``pool``.  The outputs of
+the first ``check_within`` calls are kept; after the window
+``check_calls`` of them, drawn from the seed, are restored again by the
+float32 reference from the same weights, images and noise, and compared
+(``lib/compare.py``: ``img_rms_gap``, ``img_max_gap``).
+
+The record: the window's length and calls, each call's wall time (call to
+synchronise) and host time (call to return), the work of a call counted
+on the reference (``lib/flops.py``) and, traced, ``trace_calls`` more
+calls under the profiler.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from portbench.lib import flops, session
+from portbench.lib.compare import image_gaps
+from portbench.lib.weights import generator, reference, seeded, sub_seed
+from portbench.reference.precision import Prec
+from portbench.reference.sampler import grid_corners, restore
+from wavedm_tpu_torch.inference.loader import build_hfrm, build_unet
+from wavedm_tpu_torch.inference.restoration import DiffusiveRestoration
+
+
+def _inputs(ctx, images: np.ndarray):
+    """(pool, batch, H, W, 3) float32 inputs and (pool, batch, 3, H/4,
+    W/4) noise, on the device."""
+    wl, dev = ctx.workload, ctx.device
+    pool, b = wl["pool"], wl["batch"]
+    rng = np.random.default_rng(sub_seed(ctx.seed, "order"))
+    n = len(images)
+    stream = np.concatenate([rng.permutation(n)
+                             for _ in range(-(-pool * b // n))])
+    idx = torch.as_tensor(stream[:pool * b].reshape(pool, b), device=dev)
+    x = torch.as_tensor(images, device=dev).float() / 255.0
+    h, w = images.shape[1:3]
+    pc = ctx.raw["model"]["pred_channels"]
+    noise = torch.randn((pool, b, pc, h // 4, w // 4),
+                        generator=generator(ctx.seed, "noise", dev),
+                        device=dev)
+    return x[idx], noise
+
+
+def run(ctx) -> dict:
+    dev, wl = ctx.device, ctx.workload
+    pool, b = wl["pool"], wl["batch"]
+    images = session.load_pairs(wl, clean=False)
+    inputs, noise = _inputs(ctx, images)
+    sd_u, sd_h = seeded(ctx.raw, ctx.seed, dev, True)
+    restorer = DiffusiveRestoration(ctx.cfg, build_unet(ctx.cfg, sd_u, dev),
+                                    build_hfrm(ctx.cfg, sd_h, dev), dev)
+    del sd_u, sd_h
+
+    def call(k: int) -> torch.Tensor:
+        return restorer.restore_image_device(inputs[k % pool],
+                                             noise=noise[k % pool])[0]
+
+    for k in range(wl["warmup"]):
+        call(k)
+    session.sync(dev)
+    session.reset_peak(dev)
+    kept, call_s, host_s = {}, [], []
+    t0 = time.perf_counter()
+    setup_s = t0 - ctx.t_start
+    while True:
+        k = len(call_s)
+        ts = time.perf_counter()
+        out = call(k)
+        th = time.perf_counter()
+        session.sync(dev)
+        te = time.perf_counter()
+        call_s.append(te - ts)
+        host_s.append(th - ts)
+        if k < wl["check_within"]:
+            kept[k] = out
+        if te - t0 >= ctx.seconds:
+            break
+    window_s = te - t0
+    peak = session.peak_bytes(dev)
+    traced = None
+    if ctx.trace:
+        def traced_call(i: int, spans: session.Spans) -> None:
+            with spans("restore_call"):
+                call(len(call_s) + i)
+            with spans("sync"):
+                session.sync(dev)
+
+        traced = session.profile(dev, traced_call, wl["trace_calls"])
+    del restorer, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    h, w = images.shape[1:3]
+    per_image = len(grid_corners(h // 4, w // 4,
+                                 ctx.raw["data"]["image_size"],
+                                 ctx.raw["sampling"]["grid_r"]))
+    work = flops.restore_call(ctx.raw, b, h, w, per_image)
+    rng = np.random.default_rng(sub_seed(ctx.seed, "check"))
+    sample = sorted(rng.choice(len(kept), min(wl["check_calls"], len(kept)),
+                               replace=False).tolist())
+    unet, hfrm = reference(ctx.raw, ctx.seed, dev, True)
+    ref = restore(ctx.raw, unet, hfrm,
+                  torch.cat([inputs[k % pool] for k in sample])
+                  .permute(0, 3, 1, 2),
+                  torch.cat([noise[k % pool] for k in sample]), Prec(),
+                  wl["reference_chunk"])
+    prog = torch.cat([kept[k] for k in sample]).permute(0, 3, 1, 2)
+    numbers = image_gaps(prog, ref)
+    record = dict(setup_s=setup_s, window_s=window_s, n_calls=len(call_s),
+                  items=b * len(call_s), call_s=call_s, host_s=host_s,
+                  work_per_call=work["total"], conv_per_call=work["conv"],
+                  peak_mem_bytes=peak, trace=traced)
+    return dict(record=record, numbers=numbers,
+                attempted=b * len(call_s), failed=0)
