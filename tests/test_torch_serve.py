@@ -265,7 +265,90 @@ def test_device_loop_pads_to_fixed_batch():
     assert seen == [((4, 8, 8, 3), "cpu")]        # padded 1 -> 4
     np.testing.assert_allclose(req.out, req.arr)
     assert srv.stats["served"] == 1
-    assert srv.stats["last_batch_size"] == 1
+    assert srv.stats["batches"] == 1 and srv.stats["padded_slots"] == 3
+
+
+def test_server_counters_accumulate():
+    """The cumulative counters over a full batch of PNG bodies, a padded
+    one, a JPEG and a failing batch: requests, slots, errors, and the
+    batch, queue and decode times, each by the path that owns it."""
+    from wavedm_tpu_torch.utils import profiling
+
+    class Restorer:
+        fail = False
+
+        def restore_image(self, batch, generator=None):
+            if self.fail:
+                raise RuntimeError("card lost")
+            return batch, None
+
+    rest = Restorer()
+    srv = server.RestorationServer(rest, batch=2, window_ms=200,
+                                   no_resize=True)
+    srv.start()
+    png, replies = _png(_image("RGB", 16, 16)), []
+    jpeg = io.BytesIO()
+    Image.fromarray(_image("RGB", 16, 16)).save(jpeg, "JPEG")
+    try:
+        pair = [threading.Thread(target=lambda: replies.append(
+            srv.restore_bytes(png, timeout=60))) for _ in range(2)]
+        for t in pair:
+            t.start()
+        for t in pair:
+            t.join(60)
+        replies.append(srv.restore_bytes(png, timeout=60))
+        replies.append(srv.restore_bytes(jpeg.getvalue(), timeout=60))
+        rest.fail = True
+        with pytest.raises(RuntimeError, match="card lost"):
+            srv.restore_bytes(png, timeout=60)
+    finally:
+        srv.stop(timeout=10)
+    st = srv.stats
+    assert isinstance(st, profiling.Counters) and len(replies) == 4
+    assert st["served"] == 4 and st["errors"] == 1
+    assert st["batches"] == 4 and st["padded_slots"] == 3
+    assert set(st) == {"batches", "served", "errors", "padded_slots",
+                       "batch_ms_total", "queue_wait_ms_total",
+                       "decode_ms_total.PNG", "decode_ms_total.JPEG"}
+    assert st["batch_ms_total"] > 0 and st["queue_wait_ms_total"] > 0
+    assert st["decode_ms_total.PNG"] > 0 and st["decode_ms_total.JPEG"] > 0
+
+
+def test_server_traces_its_first_batches(tmp_path, monkeypatch):
+    """With ``trace_dir`` the device-owner thread records its first
+    ``TRACE_BATCHES`` batches (2 here): the trace is written once the
+    second is done, and holds their ``serve.batch`` spans and the spans
+    the restorer opens under them, not the third batch's."""
+    from wavedm_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(server, "TRACE_BATCHES", 2)
+
+    class Restorer:
+        def restore_image(self, batch, generator=None):
+            with profiling.annotate("restore"):
+                return torch.as_tensor(batch).mul(1.0).numpy(), None
+
+    out = tmp_path / "trace"
+    srv = server.RestorationServer(Restorer(), batch=1, window_ms=1,
+                                   trace_dir=str(out))
+    srv.start()
+    try:
+        for i in range(3):
+            req = server._Request(np.full((8, 8, 3), 0.25, np.float32))
+            srv.batcher.submit(req)
+            assert req.done.wait(30) and req.error is None
+            if i == 1:
+                for _ in range(300):     # the export follows the reply
+                    if (out / "trace.json").exists():
+                        break
+                    threading.Event().wait(0.1)
+                written = (out / "trace.json").read_text()
+    finally:
+        srv.stop(timeout=30)
+    names = [e["name"] for e in json.loads(written)["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert names.count("serve.batch") == 2 and names.count("restore") == 2
+    assert (out / "trace.json").read_text() == written
 
 
 # --------------------------------------------------------------- vs JAX
@@ -377,6 +460,7 @@ def test_http_restore_health_and_survival(tiny_server):
         health = json.loads(r.read())
     assert health["served"] == 2 and health["errors"] == 0
     assert health["batches"] <= 2 and health["queue_depth"] == 0
+    assert health["decode_ms_total.PNG"] > 0
 
     for path, data in (("/restore", b"not an image"), ("/nowhere", None)):
         req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
@@ -492,15 +576,15 @@ def test_serve_cli_refuses_a_missing_card(monkeypatch):
         serve_cli.main(["--config", "production", "--resume", ""])
 
 
-def test_serve_cli_serves_until_interrupted():
+def test_serve_cli_serves_until_interrupted(tmp_path):
     """``python -m wavedm_tpu_torch.cli.serve`` on the CPU at a tiny size:
     warm-up, a restore over HTTP, ``/healthz``, and a clean exit on
-    SIGINT."""
+    SIGINT, which writes ``--trace``'s trace of the one batch served."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     argv = [sys.executable, "-m", "wavedm_tpu_torch.cli.serve", "--config",
             "production", "--device", "cpu", "--resume", "", "--host",
             "127.0.0.1", "--port", "0", "--batch", "1", "--no-resize",
-            "--warmup"]
+            "--warmup", "--trace", str(tmp_path)]
     for ov in ("model.ch=32", "model.ch_mult=[1,2]", "model.num_res_blocks=1",
                "model.attn_resolutions=[4]", "data.image_size=8",
                "data.patch_size=32", "hfrm.dim=8", "hfrm.enc_blk_nums=[1,1]",
@@ -529,6 +613,11 @@ def test_serve_cli_serves_until_interrupted():
             assert json.loads(r.read())["served"] == 1
         proc.send_signal(signal.SIGINT)
         assert proc.wait(60) == 0
+        with open(tmp_path / "trace.json") as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"]
+        assert names.count("serve.batch") == 1
+        assert names.count("restore") == 1
     finally:
         if proc.poll() is None:
             proc.kill()

@@ -19,11 +19,16 @@ PIL); a directory lists the extensions JAX's script lists (.png, .jpg,
 .jpeg, .bmp, .webp), and a file named by a glob or path is read whatever
 its name, or raises naming why.  Without ``--resume`` the weights are
 random (seeded).  Runs on the card unless ``--device`` names another.
+``--trace DIR`` records the first batch with ``utils/profiling.trace``
+(DIR/trace.json; ``python -m wavedm_tpu_torch.tools.trace_summary DIR
+--idle-gaps`` reads it), warm: that batch is restored once untraced first
+and its noise drawn again, so the outputs are an untraced run's.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import os
 import time
@@ -61,6 +66,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the 720x480 eval canonicalization")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--trace", default="", metavar="DIR",
+                   help="profile the first batch into DIR/trace.json, "
+                   "after one untraced run of it (the outputs unchanged)")
     return p.parse_args(argv)
 
 
@@ -87,6 +95,7 @@ def main(argv=None) -> int:
     from wavedm_tpu_torch.inference.restoration import refuse_lap
     from wavedm_tpu_torch.utils.gpu_lock import acquire_gpu_lock
     from wavedm_tpu_torch.utils.images import read_image, save_image
+    from wavedm_tpu_torch.utils.profiling import trace
 
     cfg = load_config(args.config, args.overrides)
     refuse_lap(cfg, "cli.restore")
@@ -125,7 +134,13 @@ def main(argv=None) -> int:
         for s in range(0, len(items), args.batch):
             chunk = items[s:s + args.batch]
             batch = np.stack([a for _, a in chunk])
-            out, _ = restorer.restore_image(batch, generator=generator)
+            traced = args.trace and not n_done
+            if traced:      # warm up, then draw the same noise again
+                drawn = generator.get_state()
+                restorer.restore_image(batch, generator=generator)
+                generator.set_state(drawn)
+            with trace(args.trace) if traced else contextlib.nullcontext():
+                out, _ = restorer.restore_image(batch, generator=generator)
             for (path, _), img in zip(chunk, out):
                 name = os.path.splitext(os.path.basename(path))[0]
                 save_image(img, os.path.join(args.out, f"{name}_restored.png"))

@@ -31,6 +31,11 @@ Patch-parallel serving, one process per card:
 splits each chain's patch batch over the cards; rank 0 serves HTTP and
 hands each batch to the other ranks (``inference/server.py``).  Outside
 ``torchrun`` ``--patch-shard`` is a world of one.
+
+``--trace DIR`` records the first 10 batches served (after ``--warmup``'s
+batch, so pass it for warm ones) with ``utils/profiling.trace`` into
+DIR/trace.json, on rank 0; ``python -m wavedm_tpu_torch.tools.trace_summary
+DIR --idle-gaps`` reads it.
 """
 
 from __future__ import annotations
@@ -73,6 +78,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "serving; a world of one outside torchrun)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--trace", default="", metavar="DIR",
+                   help="profile the first 10 batches served into "
+                   "DIR/trace.json")
     return p.parse_args(argv)
 
 
@@ -115,7 +123,8 @@ def main(argv=None) -> int:
     server = RestorationServer(restorer, batch=args.batch,
                                window_ms=args.window_ms,
                                no_resize=args.no_resize,
-                               rng_seed=cfg.training.seed)
+                               rng_seed=cfg.training.seed,
+                               trace_dir=args.trace or None)
     if mesh is not None and mesh.rank != 0:
         server.follow()
         return 0

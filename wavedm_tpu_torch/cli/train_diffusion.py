@@ -31,6 +31,12 @@ trains on one):
 Each rank reads its own stripe of the split (every ``N``-th pair), so the
 global batch is ``training.batch_size * patch_n`` crops times the number of
 processes; rank 0 validates and writes checkpoints.
+
+``--trace DIR`` records steps 11-20 (the ten after the first loss read,
+and the read after them) with ``utils/profiling.trace`` (DIR/trace.json;
+``python -m wavedm_tpu_torch.tools.trace_summary DIR --idle-gaps`` reads
+it); in a process group rank k writes DIR/rank<k>.  A resumed run records
+the ten steps after its own first read.
 """
 
 from __future__ import annotations
@@ -71,6 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="torch device (default: the CUDA card)")
     p.add_argument("--val-folder", default=os.path.join("results", "images"),
                    help="In-train validation dumps go to <dir>/step<N>")
+    p.add_argument("--trace", default="", metavar="DIR",
+                   help="profile steps 11-20 (the ten after the first "
+                   "loss read) into DIR/trace.json")
     return p.parse_args(argv)
 
 
@@ -161,6 +170,9 @@ def main(argv=None) -> int:
     if args.seed is not None:
         cfg.training.seed = args.seed
     hfrm_weights = args.hfrm_ckpt or cfg.hfrm.ckpt_path or None
+    trace_dir = args.trace or None
+    if trace_dir and process_count() > 1:
+        trace_dir = os.path.join(trace_dir, f"rank{process_index()}")
     trainer = DiffusionTrainer(cfg, hfrm_state_dict=hfrm_weights,
                                device=args.device)
     ckpt_dir = args.ckpt_dir or (
@@ -176,7 +188,7 @@ def main(argv=None) -> int:
 
     if args.smoke:
         trainer.fit(smoke_batches(cfg), max_steps=args.max_steps or 20,
-                    ckpt_dir=ckpt_dir)
+                    ckpt_dir=ckpt_dir, trace_dir=trace_dir)
         print("smoke training done at step", trainer.state.step)
         return 0
     from wavedm_tpu_torch.data.raindrop import RainDrop
@@ -186,7 +198,8 @@ def main(argv=None) -> int:
     trainer.fit(dataset.train_batches, max_steps=args.max_steps or None,
                 ckpt_dir=ckpt_dir,
                 validate_fn=make_validate(trainer, dataset, hfrm_weights,
-                                          args.val_folder))
+                                          args.val_folder),
+                trace_dir=trace_dir)
     print("training done at step", trainer.state.step)
     return 0
 

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from wavedm_tpu_torch.diffusion.schedules import alpha_bars
 from wavedm_tpu_torch.parallel.mesh import DataMesh
+from wavedm_tpu_torch.utils.profiling import annotate
 
 __all__ = ["real_bins", "fft_condition", "overlapping_grid_corners",
            "ddim_sample",
@@ -247,11 +248,15 @@ def ddim_sample(
     xt, x0s = x, []
     x0_t = torch.zeros_like(x) if solver == "dpmpp2m" else None
     for i, s in enumerate(steps):
-        t = torch.full((x.shape[0],), s["t"], dtype=torch.float32,
-                       device=x.device)
-        et = model_fn(torch.cat([x_cond, xt], dim=1), t)
-        xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
-        x0s.append(x0_t)
+        with annotate("chain.step"):
+            t = torch.full((x.shape[0],), s["t"], dtype=torch.float32,
+                           device=x.device)
+            with annotate("unet"):
+                et = model_fn(torch.cat([x_cond, xt], dim=1), t)
+            with annotate("chain.update"):
+                xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type,
+                                         noise(i))
+            x0s.append(x0_t)
     return xt, torch.stack(x0s)
 
 
@@ -338,10 +343,12 @@ def make_overlapping_sampler(
                      // len(corners))
 
             def call(sl):
-                return model_fn(inp[sl], tt[sl], x_global, index[sl])
+                with annotate("unet"):
+                    return model_fn(inp[sl], tt[sl], x_global, index[sl])
         else:
             def call(sl):
-                return model_fn(inp[sl], tt[sl])
+                with annotate("unet"):
+                    return model_fn(inp[sl], tt[sl])
         mb = patch_micro_batch
         if not mb or n <= mb:
             return call(slice(None))
@@ -357,7 +364,8 @@ def make_overlapping_sampler(
         if use_global and (x_global is None or x_global.shape[0] != b):
             raise ValueError("use_global: sample needs x_global, one whole "
                              f"image for each of the {b} images")
-        counts = torch.as_tensor(counts_np, device=x_init.device)
+        with annotate("sync.count_mask"):    # a pageable host copy
+            counts = torch.as_tensor(counts_np, device=x_init.device)
         noise = _noise_source(eta, generator, step_noise, len(steps), x_init)
         if sharded:
             noise = _broadcast_noise(noise, mesh)
@@ -375,14 +383,20 @@ def make_overlapping_sampler(
         xt, kept, x0s = x_init, None, []
         x0_t = torch.zeros_like(x_init) if solver == "dpmpp2m" else None
         for i, s in enumerate(steps):
-            inp = torch.cat([static_p[0], take(xt)] + static_p[1:], dim=1)
-            et_p = apply_model(inp, s["t"], x_global, lo)
-            et = scatter_mean(et_p, b, counts, lo)
-            xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type, noise(i))
-            if keep_idx is None:
-                x0s.append(x0_t)
-            elif i == keep_idx:
-                kept = x0_t
+            with annotate("chain.step"):
+                with annotate("chain.gather"):
+                    inp = torch.cat([static_p[0], take(xt)] + static_p[1:],
+                                    dim=1)
+                et_p = apply_model(inp, s["t"], x_global, lo)
+                with annotate("chain.scatter"):
+                    et = scatter_mean(et_p, b, counts, lo)
+                with annotate("chain.update"):
+                    xt, x0_t = _reverse_step(s, xt, et, x0_t, pred_type,
+                                             noise(i))
+                if keep_idx is None:
+                    x0s.append(x0_t)
+                elif i == keep_idx:
+                    kept = x0_t
         return xt, (torch.stack(x0s) if keep_idx is None else kept[None])
 
     return sample

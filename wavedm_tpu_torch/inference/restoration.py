@@ -62,6 +62,7 @@ from wavedm_tpu_torch.parallel.distributed import (collective_device,
                                                    process_count,
                                                    process_index)
 from wavedm_tpu_torch.parallel.mesh import DataMesh
+from wavedm_tpu_torch.utils.profiling import annotate
 
 __all__ = ["data_transform", "inverse_data_transform", "refuse_lap",
            "DiffusiveRestoration"]
@@ -239,9 +240,12 @@ class DiffusiveRestoration:
                     generator: torch.Generator,
                     step_noise: Optional[torch.Tensor]):
             # cond_pixel: (B, 3, h, w) in [0,1]; noise: (B, pred, h/4, w/4)
-            cond_w = wavelet_dec(data_transform(cond_pixel))
-            restored = self.hfrm(cond_pixel)
-            hfrm_w = wavelet_dec(data_transform(restored))
+            with annotate("restore.wavelet"):
+                cond_w = wavelet_dec(data_transform(cond_pixel))
+            with annotate("restore.hfrm"):
+                restored = self.hfrm(cond_pixel)
+            with annotate("restore.wavelet"):
+                hfrm_w = wavelet_dec(data_transform(restored))
             x_init = self._init_chain_state(
                 self._init_base_ll(cond_w, hfrm_w), noise)
             x_other = (hfrm_w[:, m.other_channels_begin:]
@@ -254,7 +258,9 @@ class DiffusiveRestoration:
             sel = self._select_output(x_final, x0_preds)
             full = torch.cat([sel[:, :m.pred_channels],
                               hfrm_w[:, m.pred_channels:]], dim=1)
-            return inverse_data_transform(wavelet_rec(full)), restored
+            with annotate("restore.wavelet"):
+                out = inverse_data_transform(wavelet_rec(full))
+            return out, restored
 
         return restore
 
@@ -338,34 +344,36 @@ class DiffusiveRestoration:
         ``step_noise`` (T, B, pred, h, w) is given.  Over a patch-parallel
         mesh every rank calls it with the same images, and x_T and each
         step's noise are rank 0's."""
-        x = torch.as_tensor(cond_pixel, dtype=torch.float32,
-                            device=self.device)
-        if x.dim() == 3:
-            x = x[None]
-        b, h, w, nch = x.shape
-        fn = self._get_restore_fn(h, w, nch)
-        if self.cfg.data.wavelet_domain or self.cfg.data.lap:
-            if h % 4 or w % 4:
-                raise ValueError(f"image dims {(h, w)} must be divisible "
-                                 "by 4")
-            shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
-        else:
-            shape = (b, self.cfg.model.pred_channels, h, w)
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(
-                self.cfg.training.seed)
-        if noise is None:
-            noise = torch.randn(shape, generator=generator,
-                                device=self.device, dtype=torch.float32)
-        elif tuple(noise.shape) != shape:
-            raise ValueError(f"noise must be {shape}, got {tuple(noise.shape)}")
-        noise = noise.to(device=self.device, dtype=torch.float32)
-        if self.mesh is not None and self.mesh.size > 1:
-            noise = noise.contiguous()
-            self.mesh.broadcast(noise)
-        pixels = x.permute(0, 3, 1, 2).contiguous()
-        out, aux = fn(pixels, noise, generator, step_noise)
-        return out.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
+        with annotate("restore"):
+            x = torch.as_tensor(cond_pixel, dtype=torch.float32,
+                                device=self.device)
+            if x.dim() == 3:
+                x = x[None]
+            b, h, w, nch = x.shape
+            fn = self._get_restore_fn(h, w, nch)
+            if self.cfg.data.wavelet_domain or self.cfg.data.lap:
+                if h % 4 or w % 4:
+                    raise ValueError(f"image dims {(h, w)} must be divisible "
+                                     "by 4")
+                shape = (b, self.cfg.model.pred_channels, h // 4, w // 4)
+            else:
+                shape = (b, self.cfg.model.pred_channels, h, w)
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(
+                    self.cfg.training.seed)
+            if noise is None:
+                noise = torch.randn(shape, generator=generator,
+                                    device=self.device, dtype=torch.float32)
+            elif tuple(noise.shape) != shape:
+                raise ValueError(f"noise must be {shape}, got "
+                                 f"{tuple(noise.shape)}")
+            noise = noise.to(device=self.device, dtype=torch.float32)
+            if self.mesh is not None and self.mesh.size > 1:
+                noise = noise.contiguous()
+                self.mesh.broadcast(noise)
+            pixels = x.permute(0, 3, 1, 2).contiguous()
+            out, aux = fn(pixels, noise, generator, step_noise)
+            return out.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
 
     def restore_image(self, cond_pixel, noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
@@ -376,7 +384,8 @@ class DiffusiveRestoration:
         the device."""
         out, restored = self.restore_image_device(cond_pixel, noise,
                                                   generator, step_noise)
-        return out.cpu().numpy(), restored
+        with annotate("sync.fetch"):
+            return out.cpu().numpy(), restored
 
     def restore(self, samples: Iterable[Tuple[np.ndarray, str]],
                 save_dir: Optional[str] = None,

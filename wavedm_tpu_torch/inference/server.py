@@ -8,7 +8,29 @@ the results back out; the HTTP side is the standard library's
 
 Endpoints:
   POST /restore     image bytes (what JAX's PIL opens) -> restored PNG bytes
-  GET  /healthz     JSON: served/batch stats, queue depth
+  GET  /healthz     JSON: the counters below, and ``queue_depth``
+
+The counters (``RestorationServer.stats``, cumulative since the server was
+built; divide two readings' differences to get rates and means):
+  batches               batches run (failed ones too)
+  served                requests answered with an image
+  errors                requests whose batch failed
+  padded_slots          slots of a batch filled by repeating its last image
+  batch_ms_total        wall time of the batches, from collecting the
+                        requests to handing back the replies
+  queue_wait_ms_total   request time from its submit to the collect that
+                        hands it to a batch
+  decode_ms_total.<fmt> time decoding (and resizing) request bodies, by
+                        format (PNG, JPEG, BMP, WebP, GIF, TIFF, other)
+A mean batch is ``(served + errors + padded_slots) / batches`` slots, a mean
+wait in the queue ``queue_wait_ms_total / (served + errors)``.
+
+With ``trace_dir`` the device-owner thread records its first
+``TRACE_BATCHES`` batches with ``utils/profiling.trace`` (the profiler
+starts on that thread, so each batch's ``serve.batch`` span, the restore
+spans under it and the card's work are in ``trace_dir/trace.json``;
+``cli/serve.py --trace``).  The decoding runs on the HTTP threads, which
+the profiler does not record: ``decode_ms_total.<fmt>`` times it.
 
 As in JAX: requests are grouped only with same-shape peers, a mixed queue
 serves the group holding the OLDEST request (no geometry starves), and a
@@ -50,6 +72,7 @@ server stops.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -64,15 +87,20 @@ import torch
 from wavedm_tpu_torch.data.raindrop import restore_input
 from wavedm_tpu_torch.inference.restoration import refuse_lap
 from wavedm_tpu_torch.parallel.distributed import collective_device
-from wavedm_tpu_torch.utils.images import decode_image, encode_png
+from wavedm_tpu_torch.utils.images import (decode_image, encode_png,
+                                          image_decoder)
+from wavedm_tpu_torch.utils.profiling import Counters, annotate, count, trace
 
-__all__ = ["Microbatcher", "RestorationServer"]
+__all__ = ["TRACE_BATCHES", "Microbatcher", "RestorationServer"]
+
+TRACE_BATCHES = 10      # the batches a server with ``trace_dir`` records
 
 
 @dataclass
 class _Request:
     arr: np.ndarray                       # (H, W, 3) float32 [0,1]
     done: threading.Event = field(default_factory=threading.Event)
+    submitted: float = 0.0                # perf_counter at submit
     out: Optional[np.ndarray] = None
     error: Optional[str] = None
 
@@ -93,6 +121,7 @@ class Microbatcher:
         self._pending: List[_Request] = []
 
     def submit(self, req: _Request) -> None:
+        req.submitted = time.perf_counter()
         self.queue.put(req)
 
     def depth(self) -> int:
@@ -147,14 +176,16 @@ class RestorationServer:
     owner and HTTP server and keeps the error in ``failed``."""
 
     def __init__(self, restorer, *, batch: int = 8, window_ms: float = 30.0,
-                 no_resize: bool = False, rng_seed: int = 61):
+                 no_resize: bool = False, rng_seed: int = 61,
+                 trace_dir: Optional[str] = None):
         if getattr(restorer, "cfg", None) is not None:
             refuse_lap(restorer.cfg, "RestorationServer")
         self.restorer = restorer
         self.batcher = Microbatcher(batch=batch, window_ms=window_ms)
         self.no_resize = no_resize
-        self.stats = {"served": 0, "batches": 0, "errors": 0,
-                      "last_batch_ms": 0.0, "last_batch_size": 0}
+        self.trace_dir = trace_dir
+        self.stats = Counters(batches=0, served=0, errors=0, padded_slots=0,
+                              batch_ms_total=0.0, queue_wait_ms_total=0.0)
         self._seed = rng_seed
         self._device = torch.device(getattr(restorer, "device", "cpu"))
         if self._device.type == "cuda" and self._device.index is None:
@@ -227,37 +258,52 @@ class RestorationServer:
                                  daemon=True).start()
 
     def _serve_batches(self, gen: torch.Generator) -> None:
-        while not self._stop.is_set():
-            reqs = self.batcher.collect(timeout=0.2)
-            if not reqs:
-                continue
-            t0 = time.time()
-            try:
-                stacked = np.stack([r.arr for r in reqs])
-                # pad short batches to the fixed batch size (repeat the last
-                # image): the card runs one batch shape per geometry
-                pad = self.batcher.batch - len(reqs)
-                if pad > 0:
-                    stacked = np.concatenate(
-                        [stacked, np.repeat(stacked[-1:], pad, axis=0)])
-                out = self.run_batch(stacked, gen)
-                for r, img in zip(reqs, out[:len(reqs)]):
-                    r.out = np.asarray(img)
-                self.stats["served"] += len(reqs)
-            except Exception as e:  # noqa: BLE001 -- fan the error out
-                for r in reqs:
-                    r.error = f"{type(e).__name__}: {e}"[:500]
-                self.stats["errors"] += len(reqs)
-                if self._mesh is not None:
-                    self.failed = e
-                    self._stop.set()
-            finally:
-                ms = (time.time() - t0) * 1e3
-                self.stats["batches"] += 1
-                self.stats["last_batch_ms"] = round(ms, 1)
-                self.stats["last_batch_size"] = len(reqs)
-                for r in reqs:
-                    r.done.set()
+        with contextlib.ExitStack() as traced:
+            while not self._stop.is_set():
+                reqs = self.batcher.collect(timeout=0.2)
+                if not reqs:
+                    continue
+                if self.trace_dir and self.stats["batches"] == 0:
+                    traced.enter_context(trace(self.trace_dir))
+                t0 = time.perf_counter()
+                count("queue_wait_ms_total",
+                      sum(1e3 * (t0 - r.submitted) for r in reqs),
+                      into=self.stats)
+                try:
+                    with annotate("serve.batch"):
+                        self._serve_batch(reqs, gen)
+                finally:
+                    count("batches", into=self.stats)
+                    count("batch_ms_total",
+                          1e3 * (time.perf_counter() - t0), into=self.stats)
+                    for r in reqs:
+                        r.done.set()
+                if self.stats["batches"] == TRACE_BATCHES:
+                    traced.close()
+
+    def _serve_batch(self, reqs: List[_Request],
+                     gen: torch.Generator) -> None:
+        """Run one batch and fill each request's ``out`` or ``error``."""
+        try:
+            stacked = np.stack([r.arr for r in reqs])
+            # pad short batches to the fixed batch size (repeat the last
+            # image): the card runs one batch shape per geometry
+            pad = self.batcher.batch - len(reqs)
+            if pad > 0:
+                stacked = np.concatenate(
+                    [stacked, np.repeat(stacked[-1:], pad, axis=0)])
+                count("padded_slots", pad, into=self.stats)
+            out = self.run_batch(stacked, gen)
+            for r, img in zip(reqs, out[:len(reqs)]):
+                r.out = np.asarray(img)
+            count("served", len(reqs), into=self.stats)
+        except Exception as e:  # noqa: BLE001 -- fan the error out
+            for r in reqs:
+                r.error = f"{type(e).__name__}: {e}"[:500]
+            count("errors", len(reqs), into=self.stats)
+            if self._mesh is not None:
+                self.failed = e
+                self._stop.set()
 
     # ------------------------------------------------------------ HTTP side
 
@@ -265,8 +311,12 @@ class RestorationServer:
         """Image bytes -> (h, w, 3) float32 in [0, 1] at the
         serving geometry: the eval protocol's 720x480 (LANCZOS), or with
         ``no_resize`` the image's own size rounded up to /16."""
-        return restore_input(decode_image(body, "request body"),
-                             self.no_resize)
+        t0 = time.perf_counter()
+        arr = restore_input(decode_image(body, "request body"),
+                            self.no_resize)
+        count("decode_ms_total." + image_decoder(body)[0],
+              1e3 * (time.perf_counter() - t0), into=self.stats)
+        return arr
 
     def restore_bytes(self, body: bytes, timeout: float = 600.0) -> bytes:
         """Decode -> enqueue -> await the device owner -> PNG bytes."""

@@ -1,6 +1,7 @@
 """Summarize a torch.profiler trace: device time by category and top kernels.
 
 Usage: python -m wavedm_tpu_torch.tools.trace_summary <trace_dir> [--top 25]
+           [--idle-gaps]
 
 <trace_dir> is the directory ``utils/profiling.trace`` wrote its Chrome
 trace to (``trace.json``), or one holding torch's ``*.pt.trace.json`` /
@@ -12,6 +13,11 @@ families, then cuDNN/CUTLASS convolution, gemm, softmax, elementwise,
 reduce, memcpy, memset, nccl, other) and the top individual kernels, so a
 regression can be attributed without a trace viewer; exits 1 when the
 trace holds no device events (naming the event categories it did hold).
+``--idle-gaps`` adds the 10 longest stretches between the first and the
+last device event in which no kernel, copy or memset ran, each named by the
+innermost program span (a ``user_annotation`` event: ``utils/profiling``'s
+``annotate``) running on the host at its middle, so an idle card can be put
+down to what the host was doing.
 
 The port's counterpart of the JAX package's ``tools/trace_summary.py``:
 busy time and top ops read alike; the categories are CUDA kernel names,
@@ -31,7 +37,7 @@ import sys
 from typing import Dict, List, Optional
 
 __all__ = ["DEVICE_CATS", "FAMILIES", "CATEGORIES", "find_trace",
-           "load_events", "category", "summarize", "main"]
+           "load_events", "category", "summarize", "idle_gaps", "main"]
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -132,6 +138,32 @@ def summarize(path: str, top: int = 25) -> Dict:
                              if "cat" in e}))
 
 
+def idle_gaps(events: List[dict], top: int = 10) -> List[Dict]:
+    """The ``top`` longest idle stretches of the card, longest first:
+    ``us`` (its length), ``at_us`` (its start after the first device
+    event's) and ``span`` (the innermost ``user_annotation`` holding its
+    middle, or None)."""
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                 for e in events
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    gaps, end = [], None
+    for a, b in dev:
+        if end is not None and a > end:
+            gaps.append((a - end, end))
+        end = b if end is None else max(end, b)
+    gaps = sorted(gaps, reverse=True)[:top]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+              e.get("name", "?")) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    out = []
+    for length, start in gaps:
+        mid = start + length / 2
+        held = [(b - a, name) for a, b, name in spans if a <= mid < b]
+        out.append(dict(us=length, at_us=start - dev[0][0],
+                        span=min(held)[1] if held else None))
+    return out
+
+
 def report(s: Dict) -> Optional[str]:
     """JAX's lines, or None when there are no device events."""
     if not s["events"]:
@@ -144,6 +176,12 @@ def report(s: Dict) -> Optional[str]:
     lines += ["", f"== top {s['top_n']} ops =="]
     lines += [f"{t / 1e3:10.1f} ms  {100 * t / total:5.1f}%  {name[:110]}"
               for name, t in s["top"]]
+    if s.get("idle_gaps") is not None:
+        lines += ["", f"== {len(s['idle_gaps'])} longest idle gaps ==",
+                  "    gap ms    at ms  host span at its middle"]
+        lines += [f"{g['us'] / 1e3:10.3f} {g['at_us'] / 1e3:8.1f}  "
+                  f"{g['span'] or '(no program span)'}"
+                  for g in s["idle_gaps"]]
     return "\n".join(lines)
 
 
@@ -151,8 +189,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trace_dir")
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--idle-gaps", action="store_true",
+                    help="the 10 longest idle gaps, named by the program "
+                    "span at their middle")
     args = ap.parse_args(argv)
-    s = summarize(find_trace(args.trace_dir), args.top)
+    path = find_trace(args.trace_dir)
+    s = summarize(path, args.top)
+    if args.idle_gaps:
+        s["idle_gaps"] = idle_gaps(load_events(path))
     text = report(s)
     if text is None:
         print("no device events found; event categories seen:", s["seen"])

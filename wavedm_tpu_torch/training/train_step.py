@@ -53,6 +53,7 @@ from wavedm_tpu_torch.ops.wavelet import wavelet_dec
 from wavedm_tpu_torch.parallel.mesh import (DataMesh, all_mean, grad_norm,
                                             grad_sync, unwrap)
 from wavedm_tpu_torch.training.state import TrainState
+from wavedm_tpu_torch.utils.profiling import annotate
 
 __all__ = ["data_transform", "inverse_data_transform", "prepare_pixel_batch",
            "prepare_wavelet_batch", "prepare_global_batch", "StepMetrics",
@@ -200,22 +201,25 @@ def make_train_step(cfg: Config, model: nn.Module,
             sl = slice(i * mb, (i + 1) * mb)
             # over a mesh the gradients are averaged on the last pass only
             with grad_sync(model, i == accum - 1):
-                out = loss_fn(x[sl], t[sl], e[sl], x_global)
-                main = (out.mse_loss if cfg.training.use_mse
-                        else out.simple_loss)
-                (main / accum).backward()
+                with annotate("train.forward"):
+                    out = loss_fn(x[sl], t[sl], e[sl], x_global)
+                    main = (out.mse_loss if cfg.training.use_mse
+                            else out.simple_loss)
+                with annotate("train.backward"):
+                    (main / accum).backward()
             # micro losses are means over equal micro-batches
             simple = simple + out.simple_loss.detach() / accum
             mse = mse + out.mse_loss.detach() / accum
 
-        gnorm = grad_norm([p.grad for p in model.parameters()
-                           if p.grad is not None])
-        state.optimizer.step()
-        ema_update(state.ema, [(k, p) for k, p in
-                               unwrap(model).named_parameters()
-                               if k in state.ema], mu)
-        state.step += 1
-        simple, mse = all_mean(torch.stack([simple, mse]), mesh)
+        with annotate("train.update"):
+            gnorm = grad_norm([p.grad for p in model.parameters()
+                               if p.grad is not None])
+            state.optimizer.step()
+            ema_update(state.ema, [(k, p) for k, p in
+                                   unwrap(model).named_parameters()
+                                   if k in state.ema], mu)
+            state.step += 1
+            simple, mse = all_mean(torch.stack([simple, mse]), mesh)
         return StepMetrics(loss=simple, mse_loss=mse,
                            loss_per_pixel=simple / num_of_pixel,
                            grad_norm=gnorm, loss_trans=loss_trans)
@@ -234,33 +238,40 @@ def make_train_step(cfg: Config, model: nn.Module,
         def lap_step(state: TrainState, lap_state: LapState, batch,
                      lap_lr: float, t: Optional[torch.Tensor] = None,
                      e: Optional[torch.Tensor] = None) -> StepMetrics:
-            x = torch.as_tensor(batch, dtype=torch.float32, device=device)
-            pyr = lap_pyr.decompose(prepare_pixel_batch(x, cfg))
-            lap_state.model.train()
-            opt = lap_state.optimizer
-            for group in opt.param_groups:
-                group["lr"] = lap_lr
-            opt.zero_grad(set_to_none=True)
-            loss_trans = lap_loss(
-                lap_state.model([lvl[:, :3] for lvl in pyr]), pyr)
-            loss_trans.backward()
-            opt.step()
-            return diffusion_update(state, pyr[-1].contiguous(), None, t,
-                                    e, loss_trans.detach())
+            with annotate("train.step"):
+                with annotate("train.prepare"):
+                    x = torch.as_tensor(batch, dtype=torch.float32,
+                                        device=device)
+                    pyr = lap_pyr.decompose(prepare_pixel_batch(x, cfg))
+                lap_state.model.train()
+                opt = lap_state.optimizer
+                for group in opt.param_groups:
+                    group["lr"] = lap_lr
+                opt.zero_grad(set_to_none=True)
+                loss_trans = lap_loss(
+                    lap_state.model([lvl[:, :3] for lvl in pyr]), pyr)
+                loss_trans.backward()
+                opt.step()
+                return diffusion_update(state, pyr[-1].contiguous(), None,
+                                        t, e, loss_trans.detach())
 
         return lap_step
 
     def step(state: TrainState, batch, t: Optional[torch.Tensor] = None,
              e: Optional[torch.Tensor] = None) -> StepMetrics:
-        x_global = None
-        if d.global_attn:
-            batch, total = batch
-            x_global = prepare_global_batch(
-                torch.as_tensor(total, dtype=torch.float32, device=device),
-                cfg)
-        x = torch.as_tensor(batch, dtype=torch.float32, device=device)
-        x = (prepare_wavelet_batch(x, cfg, hfrm) if d.wavelet_domain
-             else prepare_pixel_batch(x, cfg))
-        return diffusion_update(state, x, x_global, t, e, torch.zeros(()))
+        with annotate("train.step"):
+            with annotate("train.prepare"):
+                x_global = None
+                if d.global_attn:
+                    batch, total = batch
+                    x_global = prepare_global_batch(
+                        torch.as_tensor(total, dtype=torch.float32,
+                                        device=device), cfg)
+                x = torch.as_tensor(batch, dtype=torch.float32,
+                                    device=device)
+                x = (prepare_wavelet_batch(x, cfg, hfrm) if d.wavelet_domain
+                     else prepare_pixel_batch(x, cfg))
+            return diffusion_update(state, x, x_global, t, e,
+                                    torch.zeros(()))
 
     return step

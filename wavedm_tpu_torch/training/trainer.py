@@ -23,6 +23,7 @@ process.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -42,13 +43,20 @@ from wavedm_tpu_torch.training.train_step import make_train_step
 from wavedm_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                prune_checkpoints,
                                                save_checkpoint)
-from wavedm_tpu_torch.utils.profiling import MetricsLogger, StepTimer
+from wavedm_tpu_torch.utils.profiling import (MetricsLogger, StepTimer,
+                                              annotate, trace)
 
 __all__ = ["TrainLogEntry", "DiffusionTrainer"]
+
+_END = object()        # an epoch's batches are done
 
 
 @dataclass
 class TrainLogEntry:
+    """A logged step.  ``step_time``: the wall time since the previous
+    loss read (or since ``fit`` began) over the steps taken in it, the
+    pace ``train_crops_per_s`` counts; ``data_time``: the seconds spent
+    waiting for batches (the ``train.data`` regions) in that stretch."""
     step: int
     loss: float
     loss_per_pixel: float
@@ -116,8 +124,8 @@ class DiffusionTrainer:
             max_steps: Optional[int] = None,
             ckpt_dir: Optional[str] = None,
             metrics_path: Optional[str] = None,
-            validate_fn: Optional[Callable[[TrainState, int], None]] = None
-            ) -> List[TrainLogEntry]:
+            validate_fn: Optional[Callable[[TrainState, int], None]] = None,
+            trace_dir: Optional[str] = None) -> List[TrainLogEntry]:
         """Run epochs until ``training.n_epochs``, ``training.n_iters``
         global steps, or ``max_steps``.
 
@@ -132,64 +140,86 @@ class DiffusionTrainer:
         logged step's metrics (rank 0 writes it).  validate_fn(state,
         step): the in-train validation hook, called on rank 0 after each
         step that is a multiple of ``training.validation_freq``, before that
-        step's snapshot."""
+        step's snapshot.  trace_dir: ``utils/profiling.trace`` records
+        there the warm stretch from the first loss read to the second: the
+        ten steps after the first read (steps 11-20 of a fresh run) and
+        the second read itself.  A run that stops before its second read
+        records up to its last step; one that stops at its first, nothing.
+        """
         cfg = self.cfg
-        history: List[TrainLogEntry] = []
         stop_at = (min(max_steps, cfg.training.n_iters)
                    if max_steps is not None else cfg.training.n_iters)
         if self.state.step >= stop_at:
-            return history
-        timer = StepTimer()
+            return []
+        history: List[TrainLogEntry] = []
+        timer = StepTimer()              # the logged step times
         mlog = MetricsLogger(metrics_path) if metrics_path else None
-        for epoch in range(self.epoch, cfg.training.n_epochs):
-            self.epoch = epoch
-            data_start = time.time()
-            for batch in batch_iter_fn(epoch):
-                data_time = time.time() - data_start
-                timer.start()
-                if self.lap_state is not None:
-                    m = self.train_step(
-                        self.state, self.lap_state, batch,
-                        lap_lr_for_epoch(epoch, cfg.training.n_epochs))
-                else:
-                    m = self.train_step(self.state, batch)
-                step = self.state.step
-                if step % 10 == 0:
-                    timer.stop(sync_on=m.loss)
-                    entry = TrainLogEntry(
-                        step=step, loss=float(m.loss),
-                        loss_per_pixel=float(m.loss_per_pixel),
-                        mse_per_pixel=float(m.mse_loss) /
-                        (cfg.model.pred_channels * cfg.data.image_size ** 2),
-                        data_time=data_time, step_time=timer.times[-1])
-                    history.append(entry)
-                    lap_note = (f", loss_trans: {float(m.loss_trans):.5f}"
-                                if self.lap_state is not None else "")
-                    self.log(
-                        f"step: {entry.step}, loss: {entry.loss:.2f}, "
-                        f"loss/px: {entry.loss_per_pixel:.5f}, "
-                        f"mse/px: {entry.mse_per_pixel:.5f}, "
-                        f"step time: {entry.step_time:.3f}s "
-                        f"(avg {timer.mean:.3f}s), "
-                        f"data time: {entry.data_time:.3f}s" + lap_note)
-                    if mlog is not None:
-                        mlog.log(step, loss=entry.loss,
-                                 loss_per_pixel=entry.loss_per_pixel,
-                                 mse_per_pixel=entry.mse_per_pixel,
-                                 grad_norm=float(m.grad_norm),
-                                 step_time=entry.step_time,
-                                 data_time=entry.data_time)
-                if (validate_fn is not None and is_coordinator()
-                        and step % cfg.training.validation_freq == 0):
-                    validate_fn(self.state, step)
-                if ckpt_dir and (step % cfg.training.snapshot_freq == 0
-                                 or step == 1):
-                    self.save(os.path.join(
-                        ckpt_dir, f"{cfg.data.dataset}_epoch{epoch + 1}_ddpm"))
-                    if cfg.training.keep_snapshots:
-                        prune_checkpoints(ckpt_dir,
-                                          cfg.training.keep_snapshots)
-                if step >= stop_at:
-                    return history
-                data_start = time.time()
+        last_read, last_step = time.perf_counter(), self.state.step
+        data_s = 0.0
+        with contextlib.ExitStack() as traced:
+            for epoch in range(self.epoch, cfg.training.n_epochs):
+                self.epoch = epoch
+                batches = iter(batch_iter_fn(epoch))
+                while True:
+                    t0 = time.perf_counter()
+                    with annotate("train.data"):
+                        batch = next(batches, _END)
+                    data_s += time.perf_counter() - t0
+                    if batch is _END:
+                        break
+                    if self.lap_state is not None:
+                        m = self.train_step(
+                            self.state, self.lap_state, batch,
+                            lap_lr_for_epoch(epoch, cfg.training.n_epochs))
+                    else:
+                        m = self.train_step(self.state, batch)
+                    step = self.state.step
+                    if step % 10 == 0:
+                        with annotate("sync.log_read"):
+                            loss = float(m.loss)
+                        now = time.perf_counter()
+                        timer.times.append((now - last_read)
+                                           / (step - last_step))
+                        entry = TrainLogEntry(
+                            step=step, loss=loss,
+                            loss_per_pixel=float(m.loss_per_pixel),
+                            mse_per_pixel=float(m.mse_loss) /
+                            (cfg.model.pred_channels
+                             * cfg.data.image_size ** 2),
+                            data_time=data_s, step_time=timer.times[-1])
+                        last_read, last_step, data_s = now, step, 0.0
+                        history.append(entry)
+                        lap_note = (f", loss_trans: {float(m.loss_trans):.5f}"
+                                    if self.lap_state is not None else "")
+                        self.log(
+                            f"step: {entry.step}, loss: {entry.loss:.2f}, "
+                            f"loss/px: {entry.loss_per_pixel:.5f}, "
+                            f"mse/px: {entry.mse_per_pixel:.5f}, "
+                            f"step time: {entry.step_time:.3f}s "
+                            f"(avg {timer.mean:.3f}s), "
+                            f"data time: {entry.data_time:.3f}s" + lap_note)
+                        if mlog is not None:
+                            mlog.log(step, loss=entry.loss,
+                                     loss_per_pixel=entry.loss_per_pixel,
+                                     mse_per_pixel=entry.mse_per_pixel,
+                                     grad_norm=float(m.grad_norm),
+                                     step_time=entry.step_time,
+                                     data_time=entry.data_time)
+                        if len(history) == 1 and trace_dir and step < stop_at:
+                            traced.enter_context(trace(trace_dir))
+                        elif len(history) == 2:
+                            traced.close()      # the traced stretch ends
+                    if (validate_fn is not None and is_coordinator()
+                            and step % cfg.training.validation_freq == 0):
+                        validate_fn(self.state, step)
+                    if ckpt_dir and (step % cfg.training.snapshot_freq == 0
+                                     or step == 1):
+                        self.save(os.path.join(
+                            ckpt_dir,
+                            f"{cfg.data.dataset}_epoch{epoch + 1}_ddpm"))
+                        if cfg.training.keep_snapshots:
+                            prune_checkpoints(ckpt_dir,
+                                              cfg.training.keep_snapshots)
+                    if step >= stop_at:
+                        return history
         return history
