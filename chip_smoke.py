@@ -218,6 +218,9 @@ import time
 CARD = "NVIDIA H100 80GB HBM3"  # the card of the bounds (tools/roofline.PEAKS)
 L2_BYTES = 50 * 2 ** 20    # its L2 cache
 N_IMAGES, HEIGHT, WIDTH = 2, 480, 720
+# the patches of a restore call of 8 images and of 1 (the benchmark's
+# cells), where the default route's GroupNorm is timed besides
+PLAIN_GN_PATCHES = (8 * 45, 45)
 SEED = 61
 DEV = "cuda"               # the card (the switches phase names it so)
 TRAIN_STEPS = 3           # cut from 5 for the 5-minute cap
@@ -419,7 +422,8 @@ def gn_sites(cfg, n_patches, hw=None):
 
     from wavedm_tpu_torch.models.layers import Normalize
 
-    unet, x = unet_body(cfg, n_patches, hw, fused_gn=False)
+    unet, x = unet_body(cfg, n_patches, hw, fused_gn=False,
+                        fused_block=False)
     sites = Counter()
     for m in unet.modules():
         if isinstance(m, Normalize):
@@ -512,12 +516,14 @@ def wavelet_sizes():
 
 
 def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
-                  phase="kernels"):
+                  phase="kernels", modes=(False, True), plain_patches=()):
     """Each kernel against its plain version at the main path's shapes:
     the DWT/IWT on ``n_images`` 720x480 images, GroupNorm in the dtypes
     ``tags`` at every site of a UNet forward over ``n_patches`` patches."""
+    import inspect
+    import itertools
+
     import torch
-    import torch.nn.functional as F
 
     from wavedm_tpu_torch.ops import groupnorm_cuda as gn
 
@@ -526,66 +532,30 @@ def check_kernels(cfg, n_patches, n_images=N_IMAGES, tags=("f32", "bf16"),
     rows = wavelet_rows(gen, n_images, phase)
 
     # GroupNorm(+swish) at every distinct flagship site shape, f32 and bf16,
-    # swish on and off.  A row of the table sums one UNet forward's sites of
-    # that variant (shapes the forward does not use count 0 there).
-    # f32: the Pallas tests' 2e-5 (summation order only); bf16: both round
-    # the same f32 value once, so one bf16 ulp (<= 2**-6 relative).
+    # swish on and off, in each of ``modes`` (round_affine off: the fused
+    # route's rounding; on: the default route's).  A row of the table sums
+    # one UNet forward's sites of that variant (shapes the forward does not
+    # use are checked only).  The default route's bfloat16 rows also at
+    # each of ``plain_patches`` (emitted, not rows: no run counts them).
     sites = gn_sites(cfg, n_patches)
     assert sum(sites.values()) == 51, sites
     shapes = sorted({key[:3] for key in sites})
-    for dtype, tag, atol, rtol in ((torch.float32, "f32", 2e-5, 2e-5),
-                                   (torch.bfloat16, "bf16", 1e-6, 2.0 ** -6)):
+    if "round_affine" not in inspect.signature(gn.group_norm).parameters:
+        modes = (False,)            # an earlier commit's package (--tree)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         if tag not in tags:
             continue
-        for swish in (True, False):
-            name = f"{tag}_swish" if swish else tag
-            row = dict(source="wavedm_tpu_torch/csrc/groupnorm.cu",
-                       replaces="wavedm_tpu/ops/groupnorm_pallas.py:27",
-                       max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-                       bound_ms=0.0, library_ms=0.0)
-            for c, h, w in shapes:
-                count = sites.get((c, h, w, swish), 0)
-                xs = torch.randn(n_patches, c, h, w, device=dev,
-                                 generator=gen).to(dtype)
-                wt = torch.randn(c, device=dev, generator=gen)
-                bs = torch.randn(c, device=dev, generator=gen)
-                y = gn.group_norm(xs, wt, bs, 32, 1e-6, swish)
-                yp = gn.group_norm_plain(xs, wt, bs, 32, 1e-6, swish)
-                torch.cuda.synchronize()
-                diff = (y.float() - yp.float()).abs()
-                excess = float((diff - rtol * yp.float().abs()).max())
-                assert excess <= atol, (name, c, h, w, excess)
-                row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
-                if not count:
-                    emit(phase, kernel=f"group_norm_{name}",
-                         shape=[n_patches, c, h, w], count_per_forward=0,
-                         max_abs_err=float(diff.max()))
-                    continue
-                wl, bl = wt.to(dtype), bs.to(dtype)
-
-                def lib():
-                    out = F.group_norm(xs, 32, wl, bl, 1e-6)
-                    return F.silu(out) if swish else out
-
-                k_ms = time_ms(lambda: gn.group_norm(xs, wt, bs, 32, 1e-6,
-                                                     swish))
-                d_ms = device_ms(lambda t: gn.group_norm(t, wt, bs, 32, 1e-6,
-                                                         swish), xs)
-                p_ms = compare_ms(lambda: gn.group_norm_plain(
-                    xs, wt, bs, 32, 1e-6, swish))
-                l_ms = compare_ms(lib)
-                b_ms = gn_bound_ms(gn, xs, swish)
-                emit(phase, kernel=f"group_norm_{name}",
-                     shape=[n_patches, c, h, w], count_per_forward=count,
-                     max_abs_err=float(diff.max()), ms=k_ms, device_ms=d_ms,
-                     plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                     share_of_bound=b_ms / d_ms,
-                     plan=gn_plan(gn, n_patches, c, h * w, dtype))
-                for key, val in (("ms", k_ms), ("device_ms", d_ms),
-                                 ("plain_ms", p_ms), ("library_ms", l_ms),
-                                 ("bound_ms", b_ms)):
-                    row[key] += count * val      # per UNet forward
-            rows[f"group_norm_{name}"] = row
+        for plain, swish in itertools.product(modes, (True, False)):
+            rows[gn_name(tag, swish, plain)] = gn_row(
+                gen, sites, n_patches, dtype, tag, swish, phase,
+                round_affine=plain, shapes=shapes)
+    if True not in modes or "bf16" not in tags:
+        plain_patches = ()
+    for m, swish in itertools.product(plain_patches, (True, False)):
+        emit(phase, kernel=gn_name("bf16", swish, True), per=f"UNet forward "
+             f"at N = {m} (sums of its sites)", **gn_row(
+                 gen, gn_sites(cfg, m), m, torch.bfloat16, "bf16", swish,
+                 phase, round_affine=True))
     return rows
 
 
@@ -1320,7 +1290,8 @@ def sampler_phase(images, unet_sd, hfrm_sd, bf16_gap, launches):
             ("bf16_fused_resblock", {"parallel__fused_groupnorm": False,
                                      "parallel__fused_resblock": True},
              {"fused_gn_swish_conv_bf16": 44 * WHOLE_STEPS, "wavelet_dec": 2,
-              "wavelet_rec": 1})):
+              "wavelet_rec": 1, "group_norm_bf16_plain_swish": WHOLE_STEPS,
+              "group_norm_bf16_plain": 6 * WHOLE_STEPS})):
         rest = restorer(weights=name != "f32", sampling__whole_image=True,
                         sampling__sampling_timesteps=WHOLE_STEPS, **changes)
         out, first_ms, got = counted_restore(rest, images, want,
@@ -2268,7 +2239,9 @@ def train_data_phase(launches):
             restores = 2 if path == "streamed" else 0    # eval_batch 1
             want = {"fused_gn_swish_conv_bf16":
                     sites * (steps + chain * restores),
-                    "wavelet_dec": 3 * steps + 2 * restores}
+                    "wavelet_dec": 3 * steps + 2 * restores,
+                    **plain_norm_launches(cfg, chain * restores,
+                                          resblock=True)}
             if restores:
                 want["wavelet_rec"] = restores
             got = {k: v for k, v in counts.items() if v}
@@ -2624,7 +2597,10 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
     ckpts = ["--resume", unet_ckpt, "--hfrm-ckpt", hfrm_ckpt]
     rehearsal = os.path.join(work, "rehearsal")
     rehearsal_kernels = ["--set", "parallel.fused_resblock=true"] + two_steps
-    trains = {"fused_gn_swish_conv_f32", "wavelet_dec", "wavelet_rec"}
+    # trains, then evaluates (norm_out and the attention norms outside the
+    # fused pairs): each kernel ran
+    trains = {"fused_gn_swish_conv_f32", "wavelet_dec", "wavelet_rec",
+              "group_norm_f32_plain_swish", "group_norm_f32_plain"}
     runs = (
         ("make_synthetic_dataset", make_synthetic_dataset.main, [
             "--data-dir", os.path.join(work, "data"), "--n-train", "2",
@@ -2649,10 +2625,15 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
          {**gn("bf16", 2 * 2 * (SEED_STUDY_SEEDS + 1)),
           "wavelet_dec": 2 * 2 * (SEED_STUDY_SEEDS + 1),
           "wavelet_rec": 2 * (SEED_STUDY_SEEDS + 1)}),
+        # the default route's kernel at every norm site of each no-grad
+        # forward (channels-last ones too), none in training: two arms,
+        # each the teacher-forced ladder and four chains (25-step DDIM,
+        # 10-step dpmpp2m and DDIM, 10 steps from t_start 300)
         ("vpred_cpu_ab", vpred_cpu_ab.main, [
             "--steps", str(VPRED_AB_STEPS), "--out",
             os.path.join(work, "vpred_ab.json")]
-            + gpu, {}),
+            + gpu, plain_norm_launches(vpred_cpu_ab.toy_config(16), 2 * (
+                len(vpred_cpu_ab.TF_LADDER) + 25 + 10 + 10 + 10))),
         ("eval_sweep", eval_sweep.main, [
             "--ckpt", unet_ckpt,
             "--hfrm-ckpt", hfrm_ckpt, "--out", os.path.join(work, "sweep"),
@@ -2686,7 +2667,7 @@ def tools_phase(launches, unet_ckpt, hfrm_ckpt, step_ms=None):
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t
             got = {k: v for k, v in read_counts().items() if v}
-            if isinstance(want, set):       # trains as well: each kernel ran
+            if isinstance(want, set):       # each kernel ran
                 assert set(got) == want, (name, got, want)
             else:
                 assert got == want, (name, got, want)
@@ -2743,12 +2724,15 @@ def roofline_rows(launches):
     del unet, x
     norms = gn_sites(cfg, 1)
     swish = sum(v for k, v in norms.items() if k[3])
-    per_call = {"plain": {},
+    bf16 = reference_profile()
+    bf16.parallel.compute_dtype = "bfloat16"
+    per_call = {"plain": plain_norm_launches(bf16, 1),
                 "fused_groupnorm": {
                     "group_norm_bf16_swish": swish,
                     "group_norm_bf16": sum(norms.values()) - swish},
                 "fused_resblock": {"fused_gn_swish_conv_bf16": sum(
-                    fused_sites(cfg, 1).values())}}
+                    fused_sites(cfg, 1).values()),
+                    **plain_norm_launches(bf16, 1, resblock=True)}}
     calls = ROOFLINE_ITERS + 2                # a warm, the counted, timed
     out = {}
     for route in roofline.ROUTES:
@@ -2874,13 +2858,34 @@ def variant_cfg(name, **changes):
     return cfg.validate()
 
 
+def plain_norm_launches(cfg, calls, resblock=False):
+    """The GroupNorm kernel's launches with the default route's rounding
+    (``round_affine``) over ``calls`` no-grad UNet forwards of ``cfg``'s
+    UNet on the card: one at each norm site, or under ``fused_resblock``
+    (``resblock``) one at each site outside the ResnetBlocks' pairs
+    (``norm_out``, the attention norms); the global UNet's cross-attention
+    normalises both of its inputs at each of its levels, down and up."""
+    tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
+    sites = gn_sites(cfg, 1)
+    swish = sum(n for key, n in sites.items() if key[3])
+    plain = sum(sites.values()) - swish
+    if resblock:
+        swish -= sum(fused_sites(cfg, 1).values())
+    if cfg.data.global_attn:
+        plain += 2 * 2 * len(cfg.model.ch_mult)
+    return {k: v for k, v in ((f"group_norm_{tag}_plain_swish", swish * calls),
+                              (f"group_norm_{tag}_plain", plain * calls))
+            if v}
+
+
 def site_launches(cfg, route, calls):
-    """The kernel launches of ``calls`` UNet forwards of ``cfg``'s UNet
-    through ``route`` (``fused_groupnorm`` or ``fused_resblock``)."""
+    """The kernel launches of ``calls`` no-grad UNet forwards of ``cfg``'s
+    UNet through ``route`` (``fused_groupnorm`` or ``fused_resblock``)."""
     tag = "f32" if cfg.parallel.compute_dtype == "float32" else "bf16"
     if route == "fused_resblock":
         return {f"fused_gn_swish_conv_{tag}":
-                sum(fused_sites(cfg, 1).values()) * calls}
+                sum(fused_sites(cfg, 1).values()) * calls,
+                **plain_norm_launches(cfg, calls, resblock=True)}
     sites = gn_sites(cfg, 1)
     return {f"group_norm_{tag}_swish": calls * sum(
                 n for key, n in sites.items() if key[3]),
@@ -2902,62 +2907,110 @@ def variant_restore(name, rest, inp, want, n_timed=1):
     return out, got, first_ms, sum(runs) / len(runs) if runs else None, peak
 
 
-def gn_row(gen, sites, n, dtype, tag, swish, phase, timed=True):
+def gn_name(tag, swish, round_affine=False):
+    """A GroupNorm variant's row and launch-count name."""
+    return (f"group_norm_{tag}" + ("_plain" if round_affine else "")
+            + ("_swish" if swish else ""))
+
+
+def gn_row(gen, sites, n, dtype, tag, swish, phase, timed=True,
+           round_affine=False, shapes=None):
     """GroupNorm(+swish) at every ``swish`` site of ``sites`` at batch ``n``
-    against its plain version (the tolerances of :func:`check_kernels`),
-    its times (unless not ``timed``) summed over one UNet forward: one row
-    of the kernel table."""
+    against its plain version, its times (unless not ``timed``) summed
+    over one UNet forward: one row of the kernel table.  The fused route's
+    rounding is held to :func:`check_kernels`' tolerances and timed beside
+    ``F.group_norm`` in x's dtype (``library_ms``); with ``round_affine``,
+    the default route's is held to the card tests' bound
+    (``assert_rounds_as_eager_chain``) against its plain version and
+    against that route's eager chain, which is its library column (its
+    device time ``library_device_ms``).  Host times (the wrapper's and the
+    library's, a call) are taken on two patches, where the card keeps up.
+    ``shapes``: the (C, H, W) to check, those the forward does not use at
+    this ``swish`` checked only (default: its sites')."""
     import torch
     import torch.nn.functional as F
 
     from wavedm_tpu_torch.ops import groupnorm_cuda as gn
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_cuda import assert_rounds_as_eager_chain, eager_chain
+
+    sys.path.pop(0)
+    name = gn_name(tag, swish, round_affine)
+    mode = {"round_affine": True} if round_affine else {}
     atol, rtol = (2e-5, 2e-5) if tag == "f32" else (1e-6, 2.0 ** -6)
     row = dict(source="wavedm_tpu_torch/csrc/groupnorm.cu",
-               replaces="wavedm_tpu/ops/groupnorm_pallas.py:27",
+               replaces=("wavedm_tpu/models/layers.py:80 (flax GroupNorm, "
+                         "then swish)" if round_affine else
+                         "wavedm_tpu/ops/groupnorm_pallas.py:27"),
                max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-               bound_ms=0.0, library_ms=0.0, bound_by="bytes")
-    for (c, h, w, sw), count in sorted(sites.items()):
-        if sw != swish:
-            continue
+               bound_ms=0.0, library_ms=0.0, host_ms=0.0, host_median_ms=0.0,
+               library_host_ms=0.0, bound_by="bytes")
+    if round_affine:
+        row.update(library_device_ms=0.0, max_differing_share=0.0)
+    for c, h, w in shapes or sorted(k[:3] for k in sites if k[3] == swish):
+        count = sites.get((c, h, w, swish), 0)
         x = (torch.randn(n, c, h, w, device=gen.device, generator=gen) * 3
              + 1).to(dtype)
         wt = torch.randn(c, device=gen.device, generator=gen)
         bs = torch.randn(c, device=gen.device, generator=gen)
-        y = gn.group_norm(x, wt, bs, 32, 1e-6, swish)
-        yp = gn.group_norm_plain(x, wt, bs, 32, 1e-6, swish)
-        torch.cuda.synchronize()
-        diff = (y.float() - yp.float()).abs()
-        excess = float((diff - rtol * yp.float().abs()).max())
-        assert excess <= atol, (tag, n, c, h, w, swish, excess)
-        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
-        if not timed:
-            emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish
-                                                      else ""),
-                 shape=[n, c, h, w], max_abs_err=float(diff.max()))
-            continue
+
+        def kernel(t):
+            return gn.group_norm(t, wt, bs, 32, 1e-6, swish, **mode)
+
+        def plain(sw=swish):
+            return gn.group_norm_plain(x, wt, bs, 32, 1e-6, sw, **mode)
+
         wl, bl = wt.to(dtype), bs.to(dtype)
 
-        def lib():
-            o = F.group_norm(x, 32, wl, bl, 1e-6)
+        def lib(t):
+            if round_affine:            # the default route's eager chain
+                return eager_chain(t, wt, bs, swish)[1]
+            o = F.group_norm(t, 32, wl, bl, 1e-6)
             return F.silu(o) if swish else o
 
-        vals = dict(ms=time_ms(lambda: gn.group_norm(x, wt, bs, 32, 1e-6,
-                                                     swish), 10),
-                    device_ms=device_ms(lambda t: gn.group_norm(
-                        t, wt, bs, 32, 1e-6, swish), x, 10),
-                    plain_ms=compare_ms(lambda: gn.group_norm_plain(
-                        x, wt, bs, 32, 1e-6, swish)),
-                    library_ms=compare_ms(lib),
-                    bound_ms=gn_bound_ms(gn, x, swish))
-        emit(phase, kernel=f"group_norm_{tag}" + ("_swish" if swish else ""),
-             shape=[n, c, h, w], count_per_forward=count,
+        y, yp = kernel(x), plain()
+        torch.cuda.synchronize()
+        diff = (y.float() - yp.float()).abs()
+        check = {}
+        if round_affine:
+            assert_rounds_as_eager_chain(y, plain(False), yp, swish)
+            aff, ref = eager_chain(x, wt, bs, swish)
+            assert_rounds_as_eager_chain(y, aff, ref, swish)
+            share = float((y != ref).float().mean())
+            row["max_differing_share"] = max(row["max_differing_share"],
+                                             share)
+            check["differing_share"] = share
+            del aff, ref
+        else:
+            excess = float((diff - rtol * yp.float().abs()).max())
+            assert excess <= atol, (name, n, c, h, w, excess)
+        row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        if not (timed and count):
+            emit(phase, kernel=name, shape=[n, c, h, w],
+                 count_per_forward=count, max_abs_err=float(diff.max()),
+                 **check)
+            continue
+        small = x[:2].clone()
+        host = host_times(lambda: kernel(small))
+        vals = dict(ms=time_ms(lambda: kernel(x), 10),
+                    device_ms=device_ms(kernel, x, 10),
+                    plain_ms=compare_ms(plain),
+                    library_ms=compare_ms(lambda: lib(x)),
+                    bound_ms=gn_bound_ms(gn, x, swish),
+                    host_ms=host["host_ms"],
+                    host_median_ms=host["host_median_ms"],
+                    library_host_ms=host_times(
+                        lambda: lib(small))["host_ms"])
+        if round_affine:
+            vals["library_device_ms"] = device_ms(lib, x, 10)
+        emit(phase, kernel=name, shape=[n, c, h, w], count_per_forward=count,
              max_abs_err=float(diff.max()),
              share_of_bound=vals["bound_ms"] / vals["device_ms"],
-             plan=gn_plan(gn, n, c, h * w, dtype), **vals)
+             plan=gn_plan(gn, n, c, h * w, dtype), **check, **vals)
         for key, val in vals.items():
             row[key] += count * val
-        del x, y, yp
+        del x, y, yp, diff, small
     return row
 
 
@@ -4143,11 +4196,12 @@ def partial(phases, ref_cfg, prod_cfg):
     if "sweep" in phases:
         gn_sweep(ref_cfg, N_IMAGES * 45)
     if "kernels" in phases:
-        rows = check_kernels(ref_cfg, N_IMAGES * 45)
+        rows = check_kernels(ref_cfg, N_IMAGES * 45,
+                             plain_patches=PLAIN_GN_PATCHES)
         rows.update(wavelet_sizes())
         for name, row in rows.items():
             emit("kernels", kernel=name, per="call (wavelet) or UNet "
-                 "forward at N = 90 (GroupNorm)", **row)
+                 f"forward at N = {N_IMAGES * 45} (GroupNorm)", **row)
     scratch = dict.fromkeys(read_counts(), 0)
     step_ms = train_phase(scratch) if "train" in phases else None
     if "train_data" in phases:
@@ -4298,7 +4352,8 @@ def main(argv=None):
     emit("multigpu", part="start-up and tiny phases beside the build and "
          "small_parity", waited_s=await_multigpu())
     k_per_image = 45
-    rows = check_kernels(ref_cfg, N_IMAGES * k_per_image)
+    rows = check_kernels(ref_cfg, N_IMAGES * k_per_image,
+                         plain_patches=PLAIN_GN_PATCHES)
     # the 1-image rows' launches: the serve phase's batch-1 restore
     rows.update(wavelet_rows(torch.Generator(device="cuda").manual_seed(
         SEED + 11), 1, "kernels", "@1_image"))
@@ -4338,14 +4393,19 @@ def main(argv=None):
     unet_sd, hfrm_sd = rest.unet.state_dict(), rest.hfrm.state_dict()
     del rest
 
-    # production profile with the plain GroupNorm: same weights, inputs and
-    # noise.  Switching the GN implementation changes rounding at 51 sites
-    # per forward; switching the whole network from float32 to bfloat16
-    # changes it at every op.  So the first must move the output less than
-    # the second: held to the bfloat16-vs-float32 gap of this very run.
+    # production profile with the default route's GroupNorm (the kernel
+    # with flax's rounding): same weights, inputs and noise.  Switching
+    # the GN's rounding changes it at 51 sites per forward; switching the
+    # whole network from float32 to bfloat16 changes it at every op.  So
+    # the first must move the output less than the second: held to the
+    # bfloat16-vs-float32 gap of this very run.
     unfused_cfg = production_profile()
     unfused = build_restorer(unfused_cfg, unet_sd, hfrm_sd, device="cuda")
-    unfused_out, _, unfused_ms = restore_timed(unfused, images)
+    want = {"wavelet_dec": 2, "wavelet_rec": 1,
+            **plain_norm_launches(unfused_cfg, len(unfused.seq))}
+    unfused_out, _, got = counted_restore(unfused, images, want,
+                                          "restore default route", launches)
+    _, _, unfused_ms = restore_timed(unfused, images)
     del unfused
     f32_cfg = production_profile()
     f32_cfg.parallel.fused_groupnorm = True
@@ -4359,17 +4419,19 @@ def main(argv=None):
     assert diff <= bf16_gap, (diff, bf16_gap)
     emit("fused_vs_unfused", profile="production", max_abs_diff=diff,
          mean_abs_diff=float((fused_out - unfused_out).abs().mean()),
-         tol_bf16_vs_f32_gap=bf16_gap, unfused_ms_per_image=unfused_ms / N_IMAGES)
+         tol_bf16_vs_f32_gap=bf16_gap, unfused_launches=got,
+         unfused_ms_per_image=unfused_ms / N_IMAGES)
 
     # production profile with the fused ResnetBlock kernel at all 44 pairs
-    # (the plain GroupNorm at the 7 other norm sites): same weights, inputs
-    # and noise, held to the same gap
+    # (the default route's GroupNorm at the 7 other norm sites): same
+    # weights, inputs and noise, held to the same gap
     fr_cfg = production_profile()
     fr_cfg.parallel.fused_resblock = True
     fr_cfg.validate()
     fr_rest = build_restorer(fr_cfg, unet_sd, hfrm_sd, device="cuda")
     want = {"fused_gn_swish_conv_bf16": 44 * len(fr_rest.seq),
-            "wavelet_dec": 2, "wavelet_rec": 1}
+            "wavelet_dec": 2, "wavelet_rec": 1,
+            **plain_norm_launches(fr_cfg, len(fr_rest.seq), resblock=True)}
     fr_out, fr_first_ms, got = counted_restore(
         fr_rest, images, want, "restore_fused_resblock", launches)
     _, _, fr_ms = restore_timed(fr_rest, images)
@@ -4405,7 +4467,9 @@ def main(argv=None):
     fr_ref_cfg.validate()
     fr_ref = build_restorer(fr_ref_cfg, None, None, device="cuda")
     want = {"fused_gn_swish_conv_f32": 44 * len(fr_ref.seq),
-            "wavelet_dec": 2, "wavelet_rec": 1}
+            "wavelet_dec": 2, "wavelet_rec": 1,
+            **plain_norm_launches(fr_ref_cfg, len(fr_ref.seq),
+                                  resblock=True)}
     fr_ref_out, fr_ref_first_ms, got = counted_restore(
         fr_ref, images, want, "restore_fused_resblock reference", launches)
     fr_ref_ms = fr_ref_first_ms         # seconds a run: its counted run
@@ -4443,6 +4507,7 @@ def main(argv=None):
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     device_ms=row["device_ms"], host_ms=row.get("host_ms"),
                     host_median_ms=row.get("host_median_ms"),
+                    library_host_ms=row.get("library_host_ms"),
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row.get("bound_by", "bytes"),
                     library_ms=row["library_ms"])

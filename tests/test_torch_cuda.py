@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
-a small restoration and a train step through the kernels against the CPU
-path, the GroupNorm kernel's refusal of autograd and the wavelet kernels'
-gradient.
+the GroupNorm kernel with the default route's rounding against that
+route's eager chain, a small restoration and a train step through the
+kernels against the CPU path, the GroupNorm kernel's refusal of autograd
+and the wavelet kernels' gradient.
 
 Marked ``cuda``; every test skips where no card is present.  On the GPU
 machine (which has no jax, so the JAX conftest is left out):
@@ -12,6 +13,7 @@ machine (which has no jax, so the JAX conftest is left out):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from wavedm_tpu_torch.ops import groupnorm_cuda, wavelet_cuda
 from wavedm_tpu_torch.ops.wavelet import haar_packet_basis
@@ -229,6 +231,183 @@ def test_group_norm_kernel_takes_unaligned_tensors(cuda, dtype):
                                    rtol=2.0 ** -6)
 
 
+# The flagship UNet's norm sites (C, H, W, swish) on a 64x64 patch, from a
+# forward on the meta device: 45 GroupNorm+swish sites and 6 attention
+# norms over these 19 shapes, the 384- and 256-channel skip concats among
+# them.
+UNET_GN_SITES = [
+    (128, 32, 32, True), (128, 64, 64, True), (256, 16, 16, True),
+    (256, 32, 32, True), (256, 64, 64, True), (384, 32, 32, True),
+    (384, 64, 64, True), (512, 8, 8, True), (512, 16, 16, False),
+    (512, 16, 16, True), (512, 32, 32, True), (768, 8, 8, False),
+    (768, 8, 8, True), (768, 16, 16, True), (768, 32, 32, True),
+    (1024, 16, 16, True), (1280, 8, 8, True), (1280, 16, 16, True),
+    (1536, 8, 8, True)]
+
+
+def eager_chain(x, weight, bias, swish):
+    """The default route's eager chain (``Normalize`` off the kernel):
+    (the affine GroupNorm rounded to x's dtype, the output)."""
+    aff = F.group_norm(x.float(), 32, weight, bias, 1e-6).to(x.dtype)
+    return aff, (F.silu(aff) if swish else aff)
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp at each element's magnitude (8 significant bits)."""
+    mag = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def assert_rounds_as_eager_chain(out, aff, ref, swish, share=1e-3):
+    """``out`` against the eager chain's ``ref`` (its rounded affine
+    ``aff``).  float32: the 2e-5 of the kernel's tests.  bfloat16: an
+    element differs only where the statistics' float32 rounding flips the
+    affine's bfloat16 rounding (at most ``share`` of them), by at most
+    one ulp of the output plus, through the swish (slope <= 1.1), one ulp
+    of the affine, and 1e-5 where those ulps are finer than the
+    statistics' rounding (values near 0)."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+        return
+    diff = (out.float() - ref.float()).abs()
+    bound = bf16_ulp(ref) + (1.1 * bf16_ulp(aff) if swish else 0) + 1e-5
+    assert float((diff - bound).max()) <= 0, float(diff.max())
+    assert float((diff > 0).float().mean()) <= share
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("site", UNET_GN_SITES, ids=lambda s: "{}x{}x{}{}"
+                         .format(*s[:3], "_swish" if s[3] else ""))
+def test_round_affine_kernel_matches_the_eager_chain(cuda, site, dtype):
+    """The kernel with the default route's rounding at every norm site of
+    a two-patch forward, against that route's eager chain on the card
+    (``F.group_norm``'s Welford statistics, cast, ``F.silu``) and against
+    group_norm_plain's mirror of it (the same statistics, summed in
+    another order): float32 within 1e-5, bfloat16 as
+    assert_rounds_as_eager_chain."""
+    c, h, w, swish = site
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(2, c, h, w, device=cuda, generator=g) * 3 + 1).to(dtype)
+    wt = torch.randn(c, device=cuda, generator=g)
+    b = torch.randn(c, device=cuda, generator=g)
+    y = groupnorm_cuda.group_norm(x, wt, b, 32, 1e-6, swish,
+                                  round_affine=True)
+    plain = [groupnorm_cuda.group_norm_plain(x, wt, b, 32, 1e-6, sw,
+                                             round_affine=True)
+             for sw in (False, swish)]
+    for aff, ref in (eager_chain(x, wt, b, swish), plain):
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, ref, atol=1e-5, rtol=1e-5)
+        else:
+            assert_rounds_as_eager_chain(y, aff, ref, swish)
+
+
+def constant_group_case(dtype, device):
+    """(x, weight, bias): 32 groups of one channel each over 37 x 41, group
+    5 holding 1,517 equal values, 26.75.  float32 rounds their sum of
+    squares so that E[x^2] - E[x]^2 reads -6.1e-5 there, below -eps, in
+    torch's and in sequential summation; the kernel clamps the variance
+    at 0, as flax does, where an unclamped rsqrt gives NaN."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 32, 37, 41, generator=g) * 3 + 1
+    x[:, 5] = 26.75
+    wt, b = torch.randn(32, generator=g), torch.randn(32, generator=g)
+    return x.to(dtype).to(device), wt.to(device), b.to(device)
+
+
+def assert_constant_group_holds(y, x, wt, b, swish):
+    """``y`` finite, and at the constant group the eager chain's (whose
+    Welford variance is 0: the bias, through the swish) within the two
+    float32 roundings of x*a (|a| <= |weight| / sqrt(eps)), through the
+    swish's slope (<= 1.1), and one bfloat16 ulp."""
+    ref = eager_chain(x, wt, b, swish)[1]
+    assert bool(torch.isfinite(y.float()).all())
+    xa = 26.75 * abs(float(wt[5])) / 1e-6 ** 0.5
+    torch.testing.assert_close(
+        y[:, 5].float(), ref[:, 5].float(), atol=1.1 * xa * 2.0 ** -23,
+        rtol=2.0 ** -7 if y.dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("round_affine", [False, True],
+                         ids=["fused", "round_affine"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_group_norm_kernel_on_a_constant_group(cuda, dtype, round_affine):
+    """A group of equal values, whose float32 E[x^2] - E[x]^2 may read
+    below -eps: both roundings stay finite and hold the eager chain's
+    output there."""
+    x, wt, b = constant_group_case(dtype, cuda)
+    for swish in (False, True):
+        y = groupnorm_cuda.group_norm(x, wt, b, 32, 1e-6, swish,
+                                      round_affine=round_affine)
+        assert_constant_group_holds(y, x, wt, b, swish)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_round_affine_kernel_statistics_on_offset_input(cuda, dtype):
+    """|mean| = 30 std at the widest site (384 x 64 x 64, the top level's
+    skip concat): E[x^2] - E[x]^2 in float32 loses ~10 of the variance's
+    24 bits there, where the eager chain's Welford loses none.  The output
+    stays within the restore cells' limits of the eager chain's, read
+    against the output's scale: rms gap 6e-3 of its rms, largest gap
+    3.5e-2 of its largest value."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn(2, 384, 64, 64, device=cuda, generator=g) + 30
+         ).to(dtype)
+    wt = torch.randn(384, device=cuda, generator=g)
+    b = torch.randn(384, device=cuda, generator=g)
+    y = groupnorm_cuda.group_norm(x, wt, b, 32, 1e-6, True,
+                                  round_affine=True).float()
+    ref = eager_chain(x, wt, b, True)[1].float()
+    gap = y - ref
+    assert float(gap.square().mean().sqrt()) <= \
+        6e-3 * float(ref.square().mean().sqrt())
+    assert float(gap.abs().max()) <= 3.5e-2 * float(ref.abs().max())
+
+
+def test_default_route_launches_the_kernel_once_a_site(cuda):
+    """A no-grad forward of the flagship UNet (bfloat16, one patch) on the
+    default route launches the kernel with the default route's rounding
+    at its 51 norm sites (45 with swish), and nothing else of the
+    GroupNorm kernel; a training step (autograd) launches it 0 times."""
+    from wavedm_tpu_torch.config import config_from_dict, production_profile
+    from wavedm_tpu_torch.inference.loader import build_unet
+    from wavedm_tpu_torch.models.unet import conv_in_channels
+    from wavedm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from wavedm_tpu_torch.training.state import create_train_state
+    from wavedm_tpu_torch.training.train_step import make_train_step
+
+    cfg = production_profile()
+    unet = build_unet(cfg, None, cuda)
+    x = torch.randn(1, conv_in_channels(cfg), 64, 64, device=cuda)
+    reset_launch_counts()
+    with torch.no_grad():
+        unet(x.to(torch.bfloat16), torch.tensor([300.0], device=cuda))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    assert got == {"group_norm_bf16_plain_swish": 45,
+                   "group_norm_bf16_plain": 6}, got
+    del unet
+
+    cfg = config_from_dict({
+        "data": {"image_size": 8, "patch_size": 32},
+        "model": {"ch": 64, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [4]},
+        "diffusion": {"num_diffusion_timesteps": 50},
+        "optim": {"optimizer": "SGD", "lr": 1e-5},
+        "parallel": {"compute_dtype": "bfloat16"}})
+    model = build_unet(cfg, None, cuda, train=True)
+    step = make_train_step(cfg, model)
+    batch = np.random.default_rng(0).random((4, 32, 32, 6), dtype=np.float32)
+    reset_launch_counts()
+    step(create_train_state(model, cfg.optim, 0), batch)
+    torch.cuda.synchronize()
+    assert not any(v for k, v in launch_counts().items()
+                   if k.startswith("group_norm_")), launch_counts()
+
+
 def test_wrappers_count_launches(cuda):
     before = (wavelet_cuda.launches["wavelet_dec"],
               groupnorm_cuda.launches["f32_swish"])
@@ -400,6 +579,26 @@ def test_fused_kernel_matches_plain(cuda, shape, dtype):
     err = float((out.float() - ref.float()).abs().max())
     assert err <= tol * float(ref.float().abs().max()), err
     assert fr.launches[key] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_on_a_constant_group(cuda, dtype):
+    """The fused kernel's statistics clamp a variance that rounding takes
+    below 0, as its plain version does: on constant_group_case's input
+    (the constant group's GroupNorm scale 1e-3, so that x*a stays small
+    beside the output) it matches the plain version at
+    test_fused_kernel_matches_plain's tolerances, with no NaN."""
+    from wavedm_tpu_torch.ops import fused_resblock as fr
+
+    x, _, _ = constant_group_case(dtype, cuda)
+    _, sg, bg, wk, b = _fused_inputs(cuda, 2, 32, 64, 37, 41, dtype)
+    sg[5] = 1e-3
+    out = fr.fused_gn_swish_conv(x, sg, bg, wk, b, dtype)
+    ref = fr.fused_gn_swish_conv_plain(x, sg, bg, wk, b, dtype)
+    assert bool(torch.isfinite(out.float()).all())
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * float(ref.float().abs().max()), err
 
 
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16),

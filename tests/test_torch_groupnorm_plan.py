@@ -124,7 +124,8 @@ def split_stats_group_norm(x, weight, bias, cluster, eps=1e-6, swish=False):
     """The kernel's arithmetic with a segment split over ``cluster``
     slices (on 16-byte boundaries, as the plan cuts them): float32
     (sum x, sum x^2) per slice, added in rank order, then
-    E[x^2] - E[x]^2, the folded affine and swish; x: (N, C, H, W)."""
+    max(E[x^2] - E[x]^2, 0), the folded affine and swish; x: (N, C, H,
+    W)."""
     n, c = x.shape[:2]
     x32 = x.float()
     xg = x32.reshape(n, GROUPS, -1)
@@ -139,7 +140,7 @@ def split_stats_group_norm(x, weight, bias, cluster, eps=1e-6, swish=False):
         s1 = s1 + part.sum(dim=2)
         s2 = s2 + (part * part).sum(dim=2)
     mean = s1 / length
-    inv = torch.rsqrt(s2 / length - mean * mean + eps)
+    inv = torch.rsqrt((s2 / length - mean * mean).clamp_min(0) + eps)
     cg = c // GROUPS
     a = inv.repeat_interleave(cg, dim=1) * weight
     b = bias - mean.repeat_interleave(cg, dim=1) * a

@@ -20,6 +20,8 @@ port's counterpart of XLA's compiled cost analysis.
 Torch runs on one thread here (``one_torch_thread``).
 """
 
+import collections
+import functools
 import itertools
 import os
 
@@ -37,6 +39,7 @@ from wavedm_tpu.models.unet import DiffusionUNet as JaxUNet
 from wavedm_tpu_torch.config import PROFILES, reference_profile
 from wavedm_tpu_torch.inference.loader import build_hfrm, build_unet
 from wavedm_tpu_torch.models.hfrm import HFRM
+from wavedm_tpu_torch.models.layers import Normalize
 from wavedm_tpu_torch.models.unet import DiffusionUNet
 from wavedm_tpu_torch.ops import (_build, fused_resblock, groupnorm_cuda,
                                   wavelet_cuda)
@@ -309,8 +312,8 @@ def no_launch(monkeypatch):
             monkeypatch.setitem(counts, key, 0)
 
 
-@pytest.mark.parametrize("kernel", ["group_norm", "fused", "wavelet_dec",
-                                    "wavelet_rec"])
+@pytest.mark.parametrize("kernel", ["group_norm", "group_norm_round_affine",
+                                    "fused", "wavelet_dec", "wavelet_rec"])
 def test_a_launch_records_its_declared_work(kernel, no_launch):
     """On the card's route each launch records the work its plain version
     counts; the same call on the CPU counts that plain version's ops."""
@@ -319,6 +322,11 @@ def test_a_launch_records_its_declared_work(kernel, no_launch):
         x, g, b = torch.randn(2, 64, 8, 8), torch.randn(64), torch.randn(64)
         fn, args = groupnorm_cuda.group_norm, (x, g, b, 32, 1e-6, True)
         name = "kernel:group_norm_f32_swish"
+    elif kernel == "group_norm_round_affine":
+        x = torch.randn(2, 64, 8, 8).to(torch.bfloat16)
+        fn = functools.partial(groupnorm_cuda.group_norm, round_affine=True)
+        args = (x, torch.randn(64), torch.randn(64), 32, 1e-6, True)
+        name = "kernel:group_norm_bf16_plain_swish"
     elif kernel == "fused":
         x = torch.randn(2, 64, 8, 8).to(torch.bfloat16)
         args = (x, torch.randn(64), torch.randn(64),
@@ -337,6 +345,43 @@ def test_a_launch_records_its_declared_work(kernel, no_launch):
                                    else a for a in args])
     assert on_card.by_op[name]["calls"] == 1
     assert (on_card.flops, on_card.xla_flops) == (cpu.flops, cpu.xla_flops)
+
+
+def test_default_route_takes_the_kernel_on_the_card_outside_autograd(
+        no_launch):
+    """On the card's route the default route's norms (``Normalize`` with
+    fused=False) launch the kernel with the default route's rounding once
+    a site outside autograd, and count the forward's work as on the CPU;
+    under autograd they run the eager chain and launch nothing; a
+    channels-last input is made contiguous and launches the kernel."""
+    cfg = _small(reference_profile())
+    cfg.parallel.compute_dtype = "bfloat16"
+    model = build_unet(cfg, None, "cpu")
+    x, t = torch.randn(3, 96, 16, 16), torch.zeros(3)
+    with torch.no_grad():
+        cpu = count_work(model, x, t)
+    norms = [m for m in model.modules() if isinstance(m, Normalize)]
+    for m in norms:                 # the norms' parameters on the card too
+        m.weight = torch.nn.Parameter(m.weight.detach().as_subclass(OnCard))
+        m.bias = torch.nn.Parameter(m.bias.detach().as_subclass(OnCard))
+    sites = collections.Counter(m.swish for m in norms)
+    with torch.no_grad():
+        card = count_work(model, x.as_subclass(OnCard), t)
+    assert {k: v for k, v in groupnorm_cuda.launches.items() if v} == {
+        "bf16_plain_swish": sites[True], "bf16_plain": sites[False]}
+    assert card.by_op["kernel:group_norm_bf16_plain_swish"]["calls"] == \
+        sites[True]
+    assert (card.flops, card.xla_flops) == (cpu.flops, cpu.xla_flops)
+
+    for key in groupnorm_cuda.launches:
+        groupnorm_cuda.launches[key] = 0
+    model(x.as_subclass(OnCard), t)            # autograd: the weights
+    assert not any(groupnorm_cuda.launches.values())
+    with torch.no_grad():
+        h = torch.randn(2, 16, 16, norms[0].weight.shape[0])
+        norms[0](h.to(torch.bfloat16).permute(0, 3, 1, 2).as_subclass(OnCard))
+    assert {k: v for k, v in groupnorm_cuda.launches.items() if v} == {
+        "bf16_plain" + ("_swish" if norms[0].swish else ""): 1}
 
 
 # ------------------------------------------------------------ routes

@@ -213,7 +213,9 @@ class ParallelConfig:
     data_axis: int = -1
     fsdp: bool = False
     compute_dtype: str = "float32"   # activations: bfloat16 | float32
-    # GroupNorm(+swish) through the CUDA kernel at every UNet norm site
+    # GroupNorm(+swish) at every UNet norm site with the rounding of JAX's
+    # Pallas kernel (off: flax's GroupNorm's, through the same kernel
+    # outside autograd)
     fused_groupnorm: bool = False
     # GN->swish->conv3x3 through the fused CUDA kernel at every ResnetBlock
     fused_resblock: bool = False

@@ -5,7 +5,9 @@
 // (when every vector stays inside the segment's alignment), accumulates
 // sum(x) and sum(x^2) in float32 per thread, reduces with warp shuffles
 // and one shared-memory step, and returns mean and 1/sqrt(var + eps) with
-// var = E[x^2] - E[x]^2: the formula of the TPU kernels it replaces.
+// var = max(E[x^2] - E[x]^2, 0): the formula of the TPU kernels it
+// replaces, clamped as flax's GroupNorm clamps it (rounding can take a
+// near-constant group's variance below -eps, a NaN unclamped).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,7 +92,7 @@ __device__ float2 segment_mean_rstd(const T* __restrict__ xs, int len,
     if (lane == 0) {
       const float n = (float)len;
       const float mean = s1 / n;
-      const float var = s2 / n - mean * mean;
+      const float var = fmaxf(s2 / n - mean * mean, 0.f);
       s_stat[0] = mean;
       s_stat[1] = rsqrtf(var + eps);
     }

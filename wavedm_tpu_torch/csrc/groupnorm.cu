@@ -5,7 +5,19 @@
 // group) mean and E[x^2] - E[x]^2 in float32, eps inside the rsqrt, the
 // affine folded to y = x*a + b per channel, optional swish y*sigmoid(y),
 // output in the input dtype.  The formula is kept (not Welford) so the
-// kernel computes what the TPU kernel computes.
+// kernel computes what the TPU kernel computes.  Its rounding can take a
+// near-constant group's variance below 0 (below -eps: a NaN), so it is
+// clamped at 0 first, as flax's GroupNorm clamps it; where it is not
+// negative nothing changes.
+//
+// The same kernels also serve the UNet's default route (``Normalize`` with
+// fused=False, under no autograd), whose numerics are flax's
+// nn.GroupNorm(dtype=bfloat16) followed by a swish on its bfloat16 output:
+// with kRound set, y = x*a + b is rounded to the activation dtype, and the
+// swish runs in float32 on that rounded value and is rounded again, as the
+// eager chain F.silu(F.group_norm(x.float(), ...).to(bf16)) does.  The
+// statistics are the same.  In float32 the rounding is the identity and
+// kRound changes nothing.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory.  The op does ~10 FLOP per
 // element against 4 (bf16) or 8 (f32) bytes moved.  Counting one read of x
@@ -78,12 +90,24 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = t;
 }
 
+// The epilogue, a bit set (the C entries' `mode`): kSwish follows the
+// affine with a swish; kRound rounds the affine's output to the activation
+// dtype first (the default route's rounding, above).
+constexpr int kSwish = 1;
+constexpr int kRound = 2;
+
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 // y = v * a + b, then swish with the MUFU exponent and reciprocal.  1 + e
 // is +inf for y < -88, and y * rcp(inf) = -0, the limit.
-template <bool SWISH>
+template <typename T, int MODE>
 __device__ __forceinline__ float finish(float v, float a, float b) {
-  const float y = v * a + b;
-  return SWISH ? __fdividef(y, 1.f + __expf(-y)) : y;
+  float y = v * a + b;
+  if (MODE & kRound) y = round_to(y, static_cast<const T*>(nullptr));
+  return (MODE & kSwish) ? __fdividef(y, 1.f + __expf(-y)) : y;
 }
 
 // n / d for 0 <= n < 2^31, 1 <= d < 2^31 by a multiply-high (Granlund and
@@ -176,7 +200,7 @@ struct OnChip {
 // shared memory: m * slice elements.  Block b holds slice (b % cluster) of
 // segments (b / cluster) * m ... + m - 1, its team t (a 1/m share of its
 // warps) segment t.
-template <typename T, bool SWISH>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
     group_norm_onchip_kernel(const T* __restrict__ x,
                              const float* __restrict__ gamma,
@@ -276,9 +300,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float n = (float)p.L;
   const float mean = s1 / n;
-  const float inv = rsqrtf(s2 / n - mean * mean + p.eps);
+  const float inv = rsqrtf(fmaxf(s2 / n - mean * mean, 0.f) + p.eps);
 
-  // ---- y = x * a + b (+ swish) from shared memory, 16-byte stores
+  // ---- y = x * a + b (+ rounding, + swish) from shared memory, 16-byte
+  // stores
   const int g = seg % p.G;
   const float* gam = gamma + g * p.cg;
   const float* bet = beta + g * p.cg;
@@ -291,14 +316,14 @@ __global__ void __launch_bounds__(kThreads)
       float v[V];
       load_vec(sb + e, v);
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = finish<SWISH>(v[i], a, b);
+      for (int i = 0; i < V; ++i) v[i] = finish<T, MODE>(v[i], a, b);
       store_vec(ys + e, v);
     }
   } else {
     for (int e = tt; e < len; e += tn) {
       const int c = p.hw.div(start + e);
       const float a = inv * __ldg(gam + c);
-      store_elem(ys + e, finish<SWISH>(to_f32(sb[e]), a,
+      store_elem(ys + e, finish<T, MODE>(to_f32(sb[e]), a,
                                             __ldg(bet + c) - mean * a));
     }
   }
@@ -320,7 +345,7 @@ struct KahanSum {
 
 // (mean, 1/std) of xs[0:len] for every thread of the block: compensated
 // per-thread sums of x and x^2, then warp shuffles and one shared-memory
-// step, var = E[x^2] - E[x]^2.
+// step, var = max(E[x^2] - E[x]^2, 0).
 template <typename T>
 __device__ float2 stream_mean_rstd(const T* __restrict__ xs, int len,
                                    bool vec, float eps) {
@@ -355,7 +380,8 @@ __device__ float2 stream_mean_rstd(const T* __restrict__ xs, int len,
       b += s_part[w].y;
     }
     const float mean = a / (float)len;
-    s_stat = make_float2(mean, rsqrtf(b / (float)len - mean * mean + eps));
+    s_stat = make_float2(
+        mean, rsqrtf(fmaxf(b / (float)len - mean * mean, 0.f) + eps));
   }
   __syncthreads();
   return s_stat;
@@ -364,7 +390,7 @@ __device__ float2 stream_mean_rstd(const T* __restrict__ xs, int len,
 // The two-pass kernel, for segments too large to hold on chip, with
 // compensated statistics.  grid: one block per (n, g); dynamic shared
 // memory: 2 * (C/G) floats.
-template <typename T, bool SWISH>
+template <typename T, int MODE>
 __global__ void group_norm_stream_kernel(const T* __restrict__ x,
                                          const float* __restrict__ gamma,
                                          const float* __restrict__ beta,
@@ -396,24 +422,25 @@ __global__ void group_norm_stream_kernel(const T* __restrict__ x,
       float v[V];
       load_vec(xs + e, v);
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = finish<SWISH>(v[i], a, b);
+      for (int i = 0; i < V; ++i) v[i] = finish<T, MODE>(v[i], a, b);
       store_vec(ys + e, v);
     }
   } else {
     for (int e = threadIdx.x; e < len; e += blockDim.x) {
       const int k = e / HW;
-      store_elem(ys + e, finish<SWISH>(to_f32(xs[e]), s_ab[k], s_ab[cg + k]));
+      store_elem(ys + e,
+                 finish<T, MODE>(to_f32(xs[e]), s_ab[k], s_ab[cg + k]));
     }
   }
 }
 
 bool is_pow2_upto8(int v) { return v == 1 || v == 2 || v == 4 || v == 8; }
 
-template <typename T, bool SWISH>
+template <typename T, int MODE>
 cudaError_t launch_onchip(const T* x, const float* g, const float* b, T* y,
                           const OnChip& p, int grid, int threads, int smem,
                           cudaStream_t s) {
-  auto kernel = group_norm_onchip_kernel<T, SWISH>;
+  auto kernel = group_norm_onchip_kernel<T, MODE>;
   static bool configured[64] = {};   // per device: attributes set once
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -446,15 +473,30 @@ cudaError_t launch_onchip(const T* x, const float* g, const float* b, T* y,
   return cudaGetLastError();
 }
 
+template <typename T, int MODE>
+cudaError_t launch_mode(const T* x, const float* g, const float* b, T* y,
+                        int C, int HW, int G, float eps, bool stream_vec,
+                        const OnChip& p, int grid, int threads, int smem,
+                        cudaStream_t s) {
+  if (p.cluster == 0) {
+    group_norm_stream_kernel<T, MODE><<<grid, kThreads, smem, s>>>(
+        x, g, b, y, C, HW, G, eps, stream_vec);
+    return cudaGetLastError();
+  }
+  return launch_onchip<T, MODE>(x, g, b, y, p, grid, threads, smem, s);
+}
+
 // cluster == 0: the stream kernel; else the on-chip kernel with `cluster`
 // blocks a segment, `m` segments a block, `slice` elements a slice and
-// `threads` a block (group_norm_plan in ops/groupnorm_cuda.py).
+// `threads` a block (group_norm_plan in ops/groupnorm_cuda.py).  mode: the
+// epilogue's bits (kSwish, kRound).
 template <typename T>
 int launch(const void* x, const void* gamma, const void* beta, void* y, int N,
-           int C, int HW, int G, float eps, int swish, int cluster, int m,
+           int C, int HW, int G, float eps, int mode, int cluster, int m,
            int slice, int threads, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if (N < 0 || C <= 0 || HW < 0 || G <= 0 || C % G)
+  if (N < 0 || C <= 0 || HW < 0 || G <= 0 || C % G || mode < 0 ||
+      mode > (kSwish | kRound))
     return (int)cudaErrorInvalidValue;
   if ((long long)N * G == 0 || HW == 0) return (int)cudaSuccess;
   const int cg = C / G;
@@ -470,66 +512,74 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, int N,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) %
        16) == 0;
 
+  OnChip p = {};
+  long long smem;
+  int grid;
   if (cluster == 0) {
-    const size_t smem = 2 * cg * sizeof(float);
+    smem = 2 * cg * sizeof(float);
     if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)(N * G));
-    const bool vec = aligned && HW % V == 0;
-    if (swish)
-      group_norm_stream_kernel<T, true><<<grid, kThreads, smem, s>>>(
-          xp, gp, bp, yp, C, HW, G, eps, vec);
-    else
-      group_norm_stream_kernel<T, false><<<grid, kThreads, smem, s>>>(
-          xp, gp, bp, yp, C, HW, G, eps, vec);
-    return (int)cudaGetLastError();
+    grid = N * G;
+  } else {
+    p.segs = N * G;
+    p.L = (int)L;
+    p.G = G;
+    p.cg = cg;
+    p.slice = slice;
+    p.cluster = cluster;
+    p.m = m;
+    p.hw = make_fastdiv(HW);
+    p.eps = eps;
+    p.vec = aligned && HW % V == 0 && slice % V == 0;
+    smem = (long long)m * slice * sizeof(T);
+    if (!is_pow2_upto8(cluster) || m < 1 || m > kMaxPack ||
+        (cluster > 1 && m > 1) || slice <= 0 ||
+        (threads != 128 && threads != 256) ||
+        (long long)slice * cluster < L || (cluster == 1 && slice != L) ||
+        smem > kMaxDynSmem)
+      return (int)cudaErrorInvalidValue;
+    grid = (p.segs + m - 1) / m * cluster;
   }
-
-  OnChip p;
-  p.segs = N * G;
-  p.L = (int)L;
-  p.G = G;
-  p.cg = cg;
-  p.slice = slice;
-  p.cluster = cluster;
-  p.m = m;
-  p.hw = make_fastdiv(HW);
-  p.eps = eps;
-  p.vec = aligned && HW % V == 0 && slice % V == 0;
-  const long long smem = (long long)m * slice * sizeof(T);
-  if (!is_pow2_upto8(cluster) || m < 1 || m > kMaxPack ||
-      (cluster > 1 && m > 1) || slice <= 0 ||
-      (threads != 128 && threads != 256) ||
-      (long long)slice * cluster < L || (cluster == 1 && slice != L) ||
-      smem > kMaxDynSmem)
-    return (int)cudaErrorInvalidValue;
-  const int grid = (p.segs + m - 1) / m * cluster;
+  const bool stream_vec = aligned && HW % V == 0;
   cudaError_t err;
-  if (swish)
-    err = launch_onchip<T, true>(xp, gp, bp, yp, p, grid, threads, (int)smem,
-                                 s);
-  else
-    err = launch_onchip<T, false>(xp, gp, bp, yp, p, grid, threads,
-                                  (int)smem, s);
+  switch (mode) {
+    case 0:
+      err = launch_mode<T, 0>(xp, gp, bp, yp, C, HW, G, eps, stream_vec, p,
+                              grid, threads, (int)smem, s);
+      break;
+    case kSwish:
+      err = launch_mode<T, kSwish>(xp, gp, bp, yp, C, HW, G, eps, stream_vec,
+                                   p, grid, threads, (int)smem, s);
+      break;
+    case kRound:
+      err = launch_mode<T, kRound>(xp, gp, bp, yp, C, HW, G, eps, stream_vec,
+                                   p, grid, threads, (int)smem, s);
+      break;
+    default:
+      err = launch_mode<T, kSwish | kRound>(xp, gp, bp, yp, C, HW, G, eps,
+                                            stream_vec, p, grid, threads,
+                                            (int)smem, s);
+  }
   return (int)err;
 }
 
 }  // namespace
 
 // x, y: (N, C, H, W) contiguous, HW = H*W; gamma, beta: (C,) float32;
-// cluster, m, slice, threads: the launch plan (cluster 0: the stream
+// mode: 0 GroupNorm, 1 + swish, 2 and 3 the same rounded as the default
+// route; cluster, m, slice, threads: the launch plan (cluster 0: the stream
 // kernel).
 extern "C" int group_norm_f32(const void* x, const void* gamma,
                               const void* beta, void* y, int N, int C, int HW,
-                              int G, float eps, int swish, int cluster, int m,
+                              int G, float eps, int mode, int cluster, int m,
                               int slice, int threads, void* stream) {
-  return launch<float>(x, gamma, beta, y, N, C, HW, G, eps, swish, cluster, m,
+  return launch<float>(x, gamma, beta, y, N, C, HW, G, eps, mode, cluster, m,
                        slice, threads, stream);
 }
 
 extern "C" int group_norm_bf16(const void* x, const void* gamma,
                                const void* beta, void* y, int N, int C, int HW,
-                               int G, float eps, int swish, int cluster, int m,
+                               int G, float eps, int mode, int cluster, int m,
                                int slice, int threads, void* stream) {
-  return launch<__nv_bfloat16>(x, gamma, beta, y, N, C, HW, G, eps, swish,
+  return launch<__nv_bfloat16>(x, gamma, beta, y, N, C, HW, G, eps, mode,
                                cluster, m, slice, threads, stream);
 }

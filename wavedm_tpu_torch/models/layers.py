@@ -18,7 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wavedm_tpu_torch.ops.fused_resblock import fused_gn_swish_conv
-from wavedm_tpu_torch.ops.groupnorm_cuda import group_norm
+from wavedm_tpu_torch.ops import groupnorm_cuda
+from wavedm_tpu_torch.ops.groupnorm_cuda import autograd_records, group_norm
 
 __all__ = [
     "get_timestep_embedding",
@@ -116,8 +117,13 @@ class Normalize(nn.Module):
     """GroupNorm(32, eps 1e-6) with affine, optionally followed by swish.
 
     ``fused=True`` runs the GroupNorm(+swish) CUDA kernel
-    (``ops/groupnorm_cuda.py``); otherwise ``F.group_norm`` in float32 is
-    cast to the input dtype before the swish, as flax's GroupNorm does."""
+    (``ops/groupnorm_cuda.py``) with the JAX Pallas kernel's rounding.
+    Otherwise the GroupNorm is computed in float32 and cast to the input
+    dtype before the swish, as flax's GroupNorm does: on a float32 or
+    bfloat16 CUDA tensor outside autograd by one launch of the same kernel
+    with that rounding (``round_affine``; another layout, such as
+    channels-last, is made contiguous first), else by the eager chain
+    ``F.group_norm`` in float32, a cast, ``F.silu``."""
 
     def __init__(self, channels: int, fused: bool = False,
                  swish: bool = False, num_groups: int = 32,
@@ -132,6 +138,11 @@ class Normalize(nn.Module):
         if self.fused:
             return group_norm(x, self.weight, self.bias, self.num_groups,
                               self.eps, self.swish)
+        if (x.is_cuda and x.dtype in groupnorm_cuda.DTYPES
+                and not autograd_records(x, self.weight, self.bias)):
+            return group_norm(x.contiguous(), self.weight, self.bias,
+                              self.num_groups, self.eps, self.swish,
+                              round_affine=True)
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps).to(x.dtype)
         return F.silu(y) if self.swish else y

@@ -2,17 +2,23 @@
 
 A CPU tensor runs :func:`group_norm_plain`; a CUDA tensor launches the
 kernel or raises.  :func:`group_norm_plan` sizes the launch (how a segment
-is held on chip).  Launches are counted in ``launches`` per instantiation
-("f32", "f32_swish", "bf16", "bf16_swish"); a launch records its
-:func:`declared_work` with a work counter (``utils/work.py``).  The
-kernel has no gradient, so :func:`group_norm` refuses to run under
-autograd on every device, as the JAX package's ``fused_group_norm``
-refuses ``jax.grad``.
+is held on chip).  The kernel has two roundings: the fused route's (the
+JAX package's Pallas kernel: swish on the float32 affine, one rounding)
+and, with ``round_affine``, the default route's (flax's GroupNorm in the
+compute dtype, then a swish on its output: the affine rounded to x's dtype,
+the swish on that, rounded again).  Launches are counted in ``launches``
+per variant ("f32", "f32_swish", "bf16", "bf16_swish", and the same with
+"_plain" after the dtype for ``round_affine``); a launch records its
+:func:`declared_work` with a work counter (``utils/work.py``) under
+"kernel:group_norm_" and the variant.  The kernel has no gradient, so
+:func:`group_norm` refuses to run under autograd on every device, as the
+JAX package's ``fused_group_norm`` refuses ``jax.grad``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -21,11 +27,19 @@ from wavedm_tpu_torch.ops import _build
 from wavedm_tpu_torch.utils import work
 
 __all__ = ["group_norm", "group_norm_plain", "group_norm_plan",
-           "GroupNormPlan", "declared_work", "launches", "VARIANTS"]
+           "GroupNormPlan", "autograd_records", "declared_work", "launches",
+           "DTYPES", "VARIANTS"]
 
-VARIANTS = ("f32", "f32_swish", "bf16", "bf16_swish")
+VARIANTS = ("f32", "f32_swish", "bf16", "bf16_swish", "f32_plain",
+            "f32_plain_swish", "bf16_plain", "bf16_plain_swish")
 _ENTRY = {torch.float32: ("group_norm_f32", "f32"),
           torch.bfloat16: ("group_norm_bf16", "bf16")}
+DTYPES = tuple(_ENTRY)          # the activation dtypes the kernel takes
+SWISH, ROUND_AFFINE = 1, 2      # the bits of the kernel's epilogue mode
+# variant name by (dtype, mode)
+_VARIANT = {(dt, mode): tag + ("_plain" if mode & ROUND_AFFINE else "")
+            + ("_swish" if mode & SWISH else "")
+            for dt, (_, tag) in _ENTRY.items() for mode in range(4)}
 
 # kernel launches since the last reset, by instantiation
 launches = dict.fromkeys(VARIANTS, 0)
@@ -115,40 +129,55 @@ def declared_work(n: int, c: int, hw: int, groups: int, swish: bool,
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, num_groups: int = 32,
-                     eps: float = 1e-6, swish: bool = False) -> torch.Tensor:
+                     eps: float = 1e-6, swish: bool = False, *,
+                     round_affine: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: float32 statistics
-    E[x^2] - E[x]^2, eps inside the rsqrt, folded affine y = x*a + b,
-    optional swish, output in x's dtype.  x: (N, C, *spatial)."""
+    E[x^2] - E[x]^2 (at least 0, as flax clamps it), eps inside the rsqrt, folded affine y = x*a + b,
+    optional swish, output in x's dtype.  ``round_affine`` rounds y to x's
+    dtype before the swish (the default route's rounding).
+    x: (N, C, *spatial)."""
     n, c = x.shape[:2]
     x32 = x.float()
     xg = x32.reshape(n, num_groups, -1)
     mean = xg.mean(dim=2)
-    var = (xg * xg).mean(dim=2) - mean * mean
+    var = ((xg * xg).mean(dim=2) - mean * mean).clamp_min(0)
     inv = torch.rsqrt(var + eps)                               # (n, G)
     cg = c // num_groups
     a = inv.repeat_interleave(cg, dim=1) * weight.float()      # (n, C)
     b = bias.float() - mean.repeat_interleave(cg, dim=1) * a
     bshape = (n, c) + (1,) * (x.dim() - 2)
     y = x32 * a.reshape(bshape) + b.reshape(bshape)
+    if round_affine:
+        y = y.to(x.dtype).float()
     if swish:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
 
 
+def autograd_records(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor) -> bool:
+    """Whether autograd would record a GroupNorm of these tensors: the
+    kernel has no gradient, so :func:`group_norm` refuses such a call."""
+    return torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                        or bias.requires_grad)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6,
-               swish: bool = False) -> torch.Tensor:
+               swish: bool = False, *,
+               round_affine: bool = False) -> torch.Tensor:
     """GroupNorm(num_groups, eps) + affine (+ swish) over NCHW ``x``;
-    weight/bias: (C,) float32.  Returns x's dtype.  Raises under autograd
-    (grad mode on and an input that requires grad)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
+    weight/bias: (C,) float32.  Returns x's dtype, rounded as
+    :func:`group_norm_plain` with the same ``round_affine``.  Raises under
+    autograd (grad mode on and an input that requires grad)."""
+    if autograd_records(x, weight, bias):
         raise RuntimeError(
             "group_norm: the fused GroupNorm kernel has no gradient; "
             "train with parallel.fused_groupnorm: false (or "
             "fused_resblock: true)")
     if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, num_groups, eps, swish)
+        return group_norm_plain(x, weight, bias, num_groups, eps, swish,
+                                round_affine=round_affine)
     lib = _build.library()
     if not x.is_cuda:
         raise ValueError(f"group_norm: expected a CUDA tensor, got {x.device}")
@@ -160,7 +189,7 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if c % num_groups:
         raise ValueError(f"group_norm: {c} channels not divisible by "
                          f"{num_groups} groups")
-    hw = x[0, 0].numel()
+    hw = math.prod(x.shape[2:])
     if (c // num_groups) * hw >= 2 ** 31 or n * num_groups >= 2 ** 31:
         raise ValueError("group_norm: tensor too large for the kernel")
     for p, name in ((weight, "weight"), (bias, "bias")):
@@ -168,15 +197,15 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError(f"group_norm: {name} must be a contiguous "
                              f"float32 ({c},) tensor on {x.device}")
-    entry, tag = _ENTRY[x.dtype]
+    mode = (SWISH if swish else 0) | (ROUND_AFFINE if round_affine else 0)
     y = torch.empty_like(x)
     plan = group_norm_plan(n, c, hw, num_groups, x.dtype,
                            x.data_ptr() % 16 == 0)
-    _build.launch(lib, entry, x.get_device(), x.data_ptr(), weight.data_ptr(),
-                  bias.data_ptr(), y.data_ptr(), n, c, hw, num_groups, eps,
-                  int(swish), plan.cluster, plan.segs_per_cta, plan.slice,
-                  plan.threads)
-    name = tag + ("_swish" if swish else "")
+    _build.launch(lib, _ENTRY[x.dtype][0], x.get_device(), x.data_ptr(),
+                  weight.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, hw,
+                  num_groups, eps, mode, plan.cluster, plan.segs_per_cta,
+                  plan.slice, plan.threads)
+    name = _VARIANT[x.dtype, mode]
     launches[name] += 1
     if work.active():
         work.record("kernel:group_norm_" + name,

@@ -151,10 +151,10 @@ def group_norm_xla_flops(numel: int, n: int, c: int, groups: int,
                          swish: bool) -> int:
     """What ``group_norm_plain`` dispatches, in XLA's convention: the two
     means (an element each), x*x, the folded affine x*a + b (2 an element);
-    per (n, group) mean*mean, var - that, + eps; per (n, channel) the scale
-    and shift (3); swish's multiply (1 an element; its sigmoid is
-    transcendental)."""
-    return (5 + int(swish)) * numel + 3 * n * groups + 3 * n * c
+    per (n, group) mean*mean, var - that, its clamp at 0 (flax's maximum),
+    + eps; per (n, channel) the scale and shift (3); swish's multiply (1
+    an element; its sigmoid is transcendental)."""
+    return (5 + int(swish)) * numel + 4 * n * groups + 3 * n * c
 
 
 def group_norm_backward_xla_flops(numel: int, grad_input: bool,
