@@ -1,8 +1,10 @@
 """PyTorch port on the card: each CUDA kernel against its plain version,
 the GroupNorm kernel with the default route's rounding against that
-route's eager chain, a small restoration and a train step through the
-kernels against the CPU path, the GroupNorm kernel's refusal of autograd
-and the wavelet kernels' gradient.
+route's eager chain (also past 2**31 elements, at the pixel model's
+largest site), the kernel's launches in a pixel restore, a small
+restoration and a train step through the kernels against the CPU path,
+the GroupNorm kernel's refusal of autograd and the wavelet kernels'
+gradient.
 
 Marked ``cuda``; every test skips where no card is present.  On the GPU
 machine (which has no jax, so the JAX conftest is left out):
@@ -406,6 +408,57 @@ def test_default_route_launches_the_kernel_once_a_site(cuda):
     torch.cuda.synchronize()
     assert not any(v for k, v in launch_counts().items()
                    if k.startswith("group_norm_")), launch_counts()
+
+
+def test_round_affine_kernel_past_two_to_the_31_elements(cuda):
+    """The pixel model's largest norm site, the top level's skip concat of
+    a 720x480 restore: 874 patches x 256 x 128 x 128 bfloat16, 3.67e9
+    elements, past 2**31 (the kernel's segment offsets are 64-bit).  The
+    kernel with swish and the default route's rounding against the eager
+    chain, 64 patches at a time (GroupNorm is per patch), as
+    assert_rounds_as_eager_chain."""
+    n, c, hw, chunk = 874, 256, 128, 64
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.empty(n, c, hw, hw, dtype=torch.bfloat16, device=cuda)
+    for s in range(0, n, chunk):
+        x[s:s + chunk] = torch.randn(x[s:s + chunk].shape, device=cuda,
+                                     generator=g) * 3 + 1
+    wt = torch.randn(c, device=cuda, generator=g)
+    b = torch.randn(c, device=cuda, generator=g)
+    assert x.numel() > 2 ** 31
+    y = groupnorm_cuda.group_norm(x, wt, b, 32, 1e-6, True,
+                                  round_affine=True)
+    for s in range(0, n, chunk):
+        aff, ref = eager_chain(x[s:s + chunk], wt, b, True)
+        assert_rounds_as_eager_chain(y[s:s + chunk], aff, ref, True)
+
+
+def test_a_pixel_restore_launches_the_kernel_at_71_sites_a_step(cuda):
+    """One restore of the pixel model (``pixel_profile``: ch_mult
+    1,1,2,2,4,4, 128x128 patches, 25 steps from noise, x0 of step 21
+    kept) in bfloat16 on the default route: 25 UNet calls x (65 swish + 6
+    plain norm sites) = 1,775 launches with the default route's rounding,
+    and nothing else of the kernel; the chain counts 25 steps run, 4 of
+    them after the kept one.  On a 128 x 160 image (3 patches): the counts
+    do not depend on the size."""
+    from wavedm_tpu_torch.config import pixel_profile
+    from wavedm_tpu_torch.inference.loader import build_restorer
+    from wavedm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from wavedm_tpu_torch.utils.profiling import CHAIN
+
+    cfg = pixel_profile()
+    cfg.parallel.compute_dtype = "bfloat16"
+    restorer = build_restorer(cfg.validate(), None, None, cuda)
+    img = torch.rand(1, 128, 160, 3, device=cuda)
+    before = dict(CHAIN)
+    reset_launch_counts()
+    restorer.restore_image_device(img)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    assert got == {"group_norm_bf16_plain_swish": 1625,
+                   "group_norm_bf16_plain": 150}, got
+    assert {k: CHAIN[k] - before[k] for k in CHAIN} == {
+        "chain.steps_run": 25, "chain.steps_after_kept": 4}
 
 
 def test_wrappers_count_launches(cuda):

@@ -94,6 +94,52 @@ def test_restore_spans_repeat_every_call(micro_batch):
             assert by_id[s.parent].name == "restore"
 
 
+PIXEL = ["model.ch=32", "data.image_size=32", "data.patch_size=32",
+         "sampling.sampling_timesteps=5", "sampling.grid_r=8"]
+
+
+def _chain_counts_of(fn):
+    """What ``fn()`` adds to the chain's counters."""
+    before = dict(profiling.CHAIN)
+    fn()
+    return {k: v - before[k] for k, v in profiling.CHAIN.items()}
+
+
+@pytest.mark.parametrize("keep, after", [(-1, 0), (-2, 1), (-5, 4)])
+def test_pixel_restore_spans_and_chain_counts(keep, after):
+    """A tiny pixel restore (the pixel UNet's six levels at ch 32 on 32x32
+    patches of a 48x64 image, five steps from noise): its ``restore`` span
+    holds two ``restore.pixel`` spans (entry and exit) and the five chain
+    steps, and the chain counts five steps run, ``after`` of them after the
+    step whose x0 the output keeps (``x0_pred_index`` ``keep``), with
+    spans on or off."""
+    cfg = load_config("pixel", PIXEL + [f"sampling.x0_pred_index={keep}"])
+    torch.manual_seed(0)
+    rest = DiffusiveRestoration(cfg, build_unet(cfg, None, "cpu"),
+                                device="cpu")
+    x = torch.rand(1, 48, 64, 3)
+    want = {"chain.steps_run": 5, "chain.steps_after_kept": after}
+    assert _chain_counts_of(lambda: rest.restore_image_device(x)) == want
+    with profiling.collect():
+        got = _chain_counts_of(lambda: rest.restore_image_device(x))
+    assert got == want
+    (call,) = _tree(profiling.spans()).values()
+    assert call["restore.pixel"] == 2 and call["chain.step"] == 5
+    assert call["restore.wavelet"] == 0 and call["restore.hfrm"] == 0
+
+
+def test_whole_image_chain_counts_no_step_after_the_kept_one():
+    """The whole-image chain's output is its last step: every step counts
+    as run, none as after the kept one."""
+    cfg = load_config("pixel", PIXEL + ["sampling.whole_image=true"])
+    torch.manual_seed(0)
+    rest = DiffusiveRestoration(cfg, build_unet(cfg, None, "cpu"),
+                                device="cpu")
+    got = _chain_counts_of(
+        lambda: rest.restore_image_device(torch.rand(1, 32, 32, 3)))
+    assert got == {"chain.steps_run": 5, "chain.steps_after_kept": 0}
+
+
 def test_train_step_records_each_phase_once_in_order():
     cfg = load_config("production", TINY)
     torch.manual_seed(0)

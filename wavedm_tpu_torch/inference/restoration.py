@@ -271,14 +271,17 @@ class DiffusiveRestoration:
                                      use_fft=self.cfg.data.use_fft)
 
         def restore(cond_pixel, noise, generator, step_noise):
-            cond_n = data_transform(cond_pixel)
-            x_init = self._init_chain_state(
-                self._init_base_ll(cond_n, None), noise)
+            with annotate("restore.pixel"):
+                cond_n = data_transform(cond_pixel)
+                x_init = self._init_chain_state(
+                    self._init_base_ll(cond_n, None), noise)
             x_global = cond_n if self.cfg.data.global_attn else None
             x_final, x0_preds = sampler(x_init, cond_n, None, generator,
                                         step_noise, x_global)
             sel = self._select_output(x_final, x0_preds)
-            return inverse_data_transform(sel), cond_pixel
+            with annotate("restore.pixel"):
+                out = inverse_data_transform(sel)
+            return out, cond_pixel
 
         return restore
 

@@ -16,7 +16,8 @@ returns the latest ``SPAN_LIMIT`` of them; nothing is written to disk.
 
 The port's spans (PERF.md's layer table names the metric that reads
 each): ``restore`` (all of ``restore_image_device``), ``restore.hfrm``,
-``restore.wavelet`` (each DWT and IWT), ``chain.step`` (one a sampling
+``restore.wavelet`` (each DWT and IWT), ``restore.pixel`` (the pixel
+path's entry and exit transforms), ``chain.step`` (one a sampling
 step) holding ``chain.gather``, ``unet`` (one a UNet call or
 micro-batch), ``chain.scatter`` and ``chain.update``; ``train.step``
 holding ``train.prepare``, ``train.forward``, ``train.backward`` and
@@ -27,7 +28,10 @@ A profiler records the thread that started it: a span on another thread
 reaches :func:`spans` but not the trace.
 
 :func:`count` adds to a cumulative counter of a :class:`Counters`, which
-is always on (the server's ``/healthz`` counters).
+is always on: the server's ``/healthz`` counters, and :data:`CHAIN`, the
+sampling chains' steps (``diffusion/sampling.py``): ``chain.steps_run``
+and ``chain.steps_after_kept``, the steps run after the one whose x0 the
+output keeps (their UNet calls feed nothing).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from torch.autograd import profiler as _autograd_profiler
 from wavedm_tpu_torch.parallel.distributed import is_coordinator
 
 __all__ = ["SPAN_LIMIT", "Span", "StepTimer", "trace", "annotate", "collect",
-           "spans", "Counters", "count", "MetricsLogger"]
+           "spans", "Counters", "count", "CHAIN", "MetricsLogger"]
 
 SPAN_LIMIT = 1 << 16          # spans kept in memory, the newest
 
@@ -150,6 +154,10 @@ def count(name: str, n: float = 1, *, into: Counters) -> None:
     """Add ``n`` to the counter ``name`` of ``into``."""
     with into.lock:
         into[name] = into.get(name, 0) + n
+
+
+# the sampling chains' steps since the process started (see the module doc)
+CHAIN = Counters({"chain.steps_run": 0, "chain.steps_after_kept": 0})
 
 
 class StepTimer:
